@@ -1,12 +1,14 @@
 """GPU smoke run of the PyTorch port: builds the CUDA corner kernel, checks
-it against its plain version, checks the tracker on the card against the
-tracker on the CPU, then drives the tracker's main path (110-frame replay)
-on the card and times it.
+both of its wrappers against its plain version, times its one launch per
+pyramid (eager call, CUDA-graph replay) beside the plain version and the
+card's bound, checks the tracker on the card against the tracker on the
+CPU, then drives the tracker's main path (110-frame replay) on the card
+and times it.
 
     python3 chip_smoke.py
 
 Needs one CUDA card, ``nvcc`` and ``nvidia-smi``; imports neither JAX nor
-the JAX package. Each phase prints one line; any failure raises and the
+the JAX package. Each phase prints its result; any failure raises and the
 script exits non-zero. The last line is one JSON object naming the device.
 """
 
@@ -26,6 +28,7 @@ from mvslam_tpu_torch.frontend.vo_jit import (
 from mvslam_tpu_torch.ops import features, features_cuda
 from mvslam_tpu_torch.ops.camera import PinholeCamera
 from mvslam_tpu_torch.utils.scene import render_planes_sequence
+from mvslam_tpu_torch.utils.timing import cuda_ms, graph_ms
 
 KERNEL_SOURCE = "mvslam_tpu_torch/csrc/fast_nms_harris.cu"
 KERNEL_REPLACES = "mvslam_tpu/ops/features_pallas.py:142"
@@ -46,6 +49,20 @@ MIN_TRACKED_FRAC = 0.9          # tests/test_long_sequence.py's bar
 MIN_RUN = 20                    # frames in the longest tracked run
 
 H, W, FOCAL = 288, 384, 300.0   # the bench's synthetic scene
+TIMING_REPS = 50
+
+#: published peaks of one H100 SXM: HBM3 bytes/s, float32 outside the
+#: tensor cores
+H100_BYTES_PER_S = 3.35e12
+H100_F32_FLOPS = 67e12
+#: float32 operations of the corner front. Every pixel: the 4-pixel compass
+#: test (4 x 2 margins of 2 ops, 8 compares), Sobel and the three products
+#: (26), strict NMS and the border test (10). Every compass candidate: 32
+#: margins of 2 ops, two arc searches of 64 min + 15 max, the final max.
+#: Every corner inside the border: 3 x 49 adds and Harris (8).
+FLOPS_PER_PIXEL = 24 + 26 + 10
+FLOPS_PER_CANDIDATE = 64 + 2 * 79 + 2
+FLOPS_PER_CORNER = 147 + 8
 
 
 def log(msg: str) -> None:
@@ -73,83 +90,117 @@ def intrinsics_inv(dev, h: int = H, w: int = W,
     return cam.K_inv.to(dev, torch.float32)
 
 
-def pyramid(img: torch.Tensor, params: features.OrbParams):
-    shapes = features._level_shapes(img.shape[0], img.shape[1], params)
-    levels = [img]
-    for shape in shapes[1:]:
-        levels.append(features.resize_level(levels[-1], shape).contiguous())
-    return levels
+def compass_candidates(img: torch.Tensor, threshold: float) -> int:
+    """Pixels whose FAST score can be non-zero: at least two of the four
+    compass ring pixels brighter than c + t, or two darker than c - t (a
+    9-long arc of the 16-ring covers two of them). The arc search is needed
+    for these alone."""
+    c = img[3:-3, 3:-3]
+    ring = torch.stack([img[3:-3, 6:], img[6:, 3:-3], img[3:-3, :-6],
+                        img[:-6, 3:-3]])
+    bright = (((ring - c) - threshold) > 0).sum(0)
+    dark = (((c - ring) - threshold) > 0).sum(0)
+    return int(((bright >= 2) | (dark >= 2)).sum())
 
 
-def cuda_ms(fn, reps: int) -> float:
-    for _ in range(5):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
+def k1_bound(levels, ranks, orb: features.OrbParams) -> dict:
+    """Least time the card could take for the corner front of ``levels``:
+    the larger of bytes over the memory rate and float32 operations over
+    the float32 rate, both counted from this data."""
+    pixels = sum(lv.numel() for lv in levels)
+    candidates = sum(compass_candidates(lv, orb.fast_threshold)
+                     for lv in levels)
+    corners = sum(int(torch.isfinite(r).sum()) for r in ranks)
+    nbytes = pixels * (4 + 4)               # each level read once, written once
+    flops = (pixels * FLOPS_PER_PIXEL + candidates * FLOPS_PER_CANDIDATE
+             + corners * FLOPS_PER_CORNER)
+    ms_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    ms_flops = flops / H100_F32_FLOPS * 1e3
+    return dict(pixels=pixels, candidates=candidates, corners=corners,
+                bytes=nbytes, flops=flops, bound_ms=max(ms_bytes, ms_flops),
+                bound_by="bytes" if ms_bytes >= ms_flops else "operations")
+
+
+def check_against_plain(got: torch.Tensor, want: torch.Tensor, what: str):
+    """Corner sets equal, Harris within HARRIS_RTOL of the level's max;
+    returns (max abs error, that error over the level's max)."""
+    mg, mw = torch.isfinite(got), torch.isfinite(want)
+    if not torch.equal(mg, mw):
+        raise AssertionError(f"corner sets differ, {what}: "
+                             f"{int((mg != mw).sum())} pixels")
+    if not int(mw.sum()):
+        return 0.0, 0.0
+    err = float((got[mw] - want[mw]).abs().max())
+    scale = float(want[mw].abs().max())
+    if err > HARRIS_RTOL * scale:
+        raise AssertionError(
+            f"Harris drift {err} > {HARRIS_RTOL} * {scale}, {what}")
+    return err, err / scale
 
 
 def phase_kernel(dev, orb: features.OrbParams):
-    """Kernel vs plain on the card at every pyramid level of a 288x384 and
-    a 480x640 frame; times both over the 288x384 pyramid."""
-    max_err = 0.0
-    worst_rel = 0.0
+    """Both wrappers vs plain on the card at every pyramid level of a
+    288x384 and a 480x640 frame, pyramid views vs per-level calls bitwise;
+    then the 288x384 pyramid timed as plain, eager call and graph replay."""
+    args = (orb.fast_threshold, orb.harris_k, orb.border)
+    max_err = worst_rel = 0.0
     levels_checked = 0
-    timing_levels = None
     for (h, w, focal) in ((H, W, FOCAL), (480, 640, 500.0)):
         frame = render_planes_sequence(bench_trajectory(1), h=h, w=w,
                                        focal=focal)[0]
-        levels = pyramid(torch.from_numpy(frame).to(dev), orb)
-        if h == H:
-            timing_levels = levels
-        for lv in levels:
-            k = features_cuda.fast_nms_harris_rank(
-                lv, orb.fast_threshold, orb.harris_k, orb.border)
-            r = features_cuda.fast_nms_harris_rank_ref(
-                lv, orb.fast_threshold, orb.harris_k, orb.border)
+        levels = features.pyramid(torch.from_numpy(frame).to(dev), orb)
+        launches0 = features_cuda.fast_nms_harris_rank_pyramid.launches
+        ranks = features_cuda.fast_nms_harris_rank_pyramid(levels, *args)
+        if features_cuda.fast_nms_harris_rank_pyramid.launches != launches0 + 1:
+            raise AssertionError("a pyramid call is not one launch")
+        for lv, from_pyramid in zip(levels, ranks):
+            what = f"level {tuple(lv.shape)}"
+            alone = features_cuda.fast_nms_harris_rank(lv, *args)
+            plain = features_cuda.fast_nms_harris_rank_ref(lv, *args)
             torch.cuda.synchronize()
-            mk, mr = torch.isfinite(k), torch.isfinite(r)
-            if not torch.equal(mk, mr):
+            if not torch.equal(from_pyramid, alone):
                 raise AssertionError(
-                    f"corner sets differ at level {tuple(lv.shape)}: "
-                    f"{int((mk != mr).sum())} pixels")
-            if int(mr.sum()):
-                err = float((k[mr] - r[mr]).abs().max())
-                scale = float(r[mr].abs().max())
-                max_err = max(max_err, err)
-                worst_rel = max(worst_rel, err / scale)
-                if err > HARRIS_RTOL * scale:
-                    raise AssertionError(
-                        f"Harris drift {err} > {HARRIS_RTOL} * {scale} at "
-                        f"level {tuple(lv.shape)}")
+                    f"pyramid view != per-level call, {what}")
+            if not from_pyramid.is_contiguous():
+                raise AssertionError(f"pyramid view not dense, {what}")
+            for got in (from_pyramid, alone):
+                err, rel = check_against_plain(got, plain, what)
+                max_err, worst_rel = max(max_err, err), max(worst_rel, rel)
             levels_checked += 1
+        if h == H:
+            timing_levels, bound = levels, k1_bound(levels, ranks, orb)
 
-    def run(fn):
-        def all_levels():
-            for lv in timing_levels:
-                fn(lv, orb.fast_threshold, orb.harris_k, orb.border)
-        return all_levels
+    def plain_pyramid():
+        return [features_cuda.fast_nms_harris_rank_ref(lv, *args)
+                for lv in timing_levels]
 
-    launches0 = features_cuda.fast_nms_harris_rank.launches
-    ms_plain = cuda_ms(run(features_cuda.fast_nms_harris_rank_ref), 50)
-    ms_kernel = cuda_ms(run(features_cuda.fast_nms_harris_rank), 50)
-    ms_kernel2 = cuda_ms(run(features_cuda.fast_nms_harris_rank), 50)
-    ms_plain2 = cuda_ms(run(features_cuda.fast_nms_harris_rank_ref), 50)
-    assert features_cuda.fast_nms_harris_rank.launches > launches0
-    ms_k = min(ms_kernel, ms_kernel2)
-    ms_p = min(ms_plain, ms_plain2)
-    log(f"kernel vs plain: {levels_checked} levels, corner sets equal, "
-        f"max |dHarris| {max_err:.3e} (worst relative {worst_rel:.3e}, "
-        f"bound {HARRIS_RTOL}); 8-level 288x384 pyramid: kernel "
-        f"{ms_kernel:.4f}/{ms_kernel2:.4f} ms, plain "
-        f"{ms_plain:.4f}/{ms_plain2:.4f} ms (plain, kernel, kernel, plain)")
-    return max_err, ms_k, ms_p
+    def kernel_pyramid():
+        return features_cuda.fast_nms_harris_rank_pyramid(timing_levels, *args)
+
+    # plain, kernel (eager, then its graph replay), kernel, plain. The
+    # levels are in L2 as in the tracker, where the resize just wrote them.
+    ms_plain = cuda_ms(plain_pyramid, TIMING_REPS)
+    ms_eager = cuda_ms(kernel_pyramid, TIMING_REPS)
+    ms_device = graph_ms(kernel_pyramid, TIMING_REPS)
+    ms_device2 = graph_ms(kernel_pyramid, TIMING_REPS)
+    ms_eager2 = cuda_ms(kernel_pyramid, TIMING_REPS)
+    ms_plain2 = cuda_ms(plain_pyramid, TIMING_REPS)
+    log(f"kernel vs plain: {levels_checked} levels, both wrappers: corner "
+        f"sets equal, max |dHarris| {max_err:.3e} (worst relative "
+        f"{worst_rel:.3e}, bound {HARRIS_RTOL}); pyramid views bitwise equal "
+        f"to per-level calls")
+    log(f"8-level 288x384 pyramid ({bound['pixels']} pixels, "
+        f"{bound['candidates']} arc-search candidates, {bound['corners']} "
+        f"corners): one launch; eager {ms_eager:.4f}/{ms_eager2:.4f} ms, "
+        f"device (CUDA-graph replay) {ms_device:.5f}/{ms_device2:.5f} ms, "
+        f"plain {ms_plain:.4f}/{ms_plain2:.4f} ms (plain, kernel, kernel, "
+        f"plain; {TIMING_REPS} reps after 5); bound {bound['bound_ms']:.5f} "
+        f"ms by {bound['bound_by']} ({bound['bytes']} bytes, "
+        f"{bound['flops']} float32 operations)")
+    return dict(max_abs_err=max_err, ms=min(ms_eager, ms_eager2),
+                device_ms=min(ms_device, ms_device2),
+                plain_ms=min(ms_plain, ms_plain2),
+                bound_ms=bound["bound_ms"], bound_by=bound["bound_by"])
 
 
 def phase_parity(dev, params: VoJitParams):
@@ -213,13 +264,13 @@ def phase_main(dev, params: VoJitParams, gpu: str):
     replay = make_vo_replay(params)
 
     torch.cuda.synchronize()
-    features_cuda.fast_nms_harris_rank.launches = 0
+    features_cuda.fast_nms_harris_rank_pyramid.launches = 0
     t0 = time.perf_counter()
     state, outs = replay(vo_init_state(params, device=dev), images, K_inv,
                          focal)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    launches = features_cuda.fast_nms_harris_rank.launches
+    launches = features_cuda.fast_nms_harris_rank_pyramid.launches
 
     tracked = int(state.frame_tracked)
     if tracked < MIN_TRACKED_FRAC * n:
@@ -227,9 +278,8 @@ def phase_main(dev, params: VoJitParams, gpu: str):
     if not bool(torch.isfinite(outs.pose_t).all() & torch.isfinite(
             outs.pose_R).all()):
         raise AssertionError("non-finite poses")
-    expected = n * params.orb.num_levels
-    if launches != expected:
-        raise AssertionError(f"kernel launches {launches} != {expected}")
+    if launches != n:                   # one launch per frame's pyramid
+        raise AssertionError(f"kernel launches {launches} != {n}")
     # trajectory health in the longest tracked run (as in tests/
     # test_long_sequence.py): a reset restarts the monocular gauge, so fit
     # the scale on x within the run and bound the drift
@@ -265,7 +315,7 @@ def phase_main(dev, params: VoJitParams, gpu: str):
         f"{0.05 * span:.4f}), kernel launches {launches}; first pass "
         f"{first_s:.2f} s, then {fps:.2f} frames/s over {passes} passes "
         f"on {gpu}")
-    return launches, fps
+    return launches, n, fps
 
 
 def main() -> int:
@@ -284,15 +334,16 @@ def main() -> int:
         f"and load in {time.perf_counter() - t0:.2f} s")
 
     params = VoJitParams()
-    max_err, ms_k, ms_p = phase_kernel(dev, params.orb)
+    k1 = phase_kernel(dev, params.orb)
     phase_parity(dev, params)
-    launches, fps = phase_main(dev, params, f"{gpu} ({smi})")
+    launches, frames, _ = phase_main(dev, params, f"{gpu} ({smi})")
 
+    # no single PyTorch call computes the corner front: no library time
     log(json.dumps({"kernels": [{
         "name": "fast_nms_harris_rank", "route": "cuda",
         "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
-        "launches": launches, "max_abs_err": max_err,
-        "ms": ms_k, "plain_ms": ms_p,
+        "launches": launches, "launches_per_frame": launches / frames, **k1,
+        "library_ms": None,
     }]}))
     log(smi)
     print(json.dumps({"ok": True, "device": {

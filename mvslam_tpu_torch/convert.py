@@ -21,11 +21,12 @@ _INT_FIELDS = ("mode", "step", "map_seen", "lf_assoc", "rb_step", "rb_pos",
 _BOOL_FIELDS = ("map_valid", "lf_mask", "rb_mask", "rb_valid")
 
 
-def state_from_numpy(d: dict, device=None, dtype=torch.float32,
+def state_from_numpy(d: dict, device="cuda", dtype=torch.float32,
                      seed: int = 0) -> VoJitState:
-    """Port state from a dict of numpy arrays (``key``/``generator`` are
-    ignored; the new state's generator is seeded with ``seed``)."""
-    dev = torch.device("cpu") if device is None else torch.device(device)
+    """Port state on ``device`` (the card unless the caller names another)
+    from a dict of numpy arrays (``key``/``generator`` are ignored; the new
+    state's generator is seeded with ``seed``)."""
+    dev = torch.device(device)
     fields = {}
     for name in VoJitState._fields:
         if name == "generator":

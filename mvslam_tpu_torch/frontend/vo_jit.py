@@ -128,14 +128,15 @@ class VoStepOut(NamedTuple):
     init_tried: Tensor          # () int32 ring slots refined by do_init
 
 
-def vo_init_state(params: VoJitParams = VoJitParams(), device=None,
+def vo_init_state(params: VoJitParams = VoJitParams(), device="cuda",
                   dtype=torch.float32, seed: int = 0) -> VoJitState:
-    """Empty tracker state on ``device``; ``seed`` seeds its generator."""
+    """Empty tracker state on ``device`` (the card unless the caller names
+    another, e.g. ``"cpu"``); ``seed`` seeds its generator."""
     K = params.orb.max_features
     M = params.map_capacity
     W = klt.WINDOW
     B = params.init_window
-    dev = torch.device("cpu") if device is None else torch.device(device)
+    dev = torch.device(device)
 
     def z(*shape, dt=dtype):
         return torch.zeros(shape, dtype=dt, device=dev)

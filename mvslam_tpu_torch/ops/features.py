@@ -1,12 +1,14 @@
 """ORB-style feature detection + description (port of
 ``mvslam_tpu.ops.features``, per-level unrolled layout).
 
-Per pyramid level: the dense corner front (FAST-9/16 max-margin score,
-strict 3x3 NMS, border suppression, Harris rank) runs through
-:func:`mvslam_tpu_torch.ops.features_cuda.fast_nms_harris_rank` — the
-hand-written CUDA kernel on the card, the plain composition here on the
-CPU — then a stable top-k per level, a patch gather, intensity-centroid
-orientation and 256-bit rBRIEF descriptors.
+The scale pyramid is built first; the dense corner front (FAST-9/16
+max-margin score, strict 3x3 NMS, border suppression, Harris rank) of all
+its levels then runs through one call of
+:func:`mvslam_tpu_torch.ops.features_cuda.fast_nms_harris_rank_pyramid` —
+one launch of the hand-written CUDA kernel on the card, the plain
+composition per level on the CPU — and each level takes a stable top-k, a
+patch gather, intensity-centroid orientation and 256-bit rBRIEF
+descriptors.
 
 Descriptors are ``(K, 8)`` int32 words holding the same bits as the JAX
 package's uint32 words (``torch.uint32`` supports few operations).
@@ -296,30 +298,39 @@ def resize_level(img: Tensor, shape: tuple[int, int]) -> Tensor:
     return out[0, 0]
 
 
+def pyramid(img: Tensor, params: OrbParams = OrbParams()) -> list[Tensor]:
+    """The scale pyramid of ``img``: level 0 is ``img`` itself, and each
+    further level is resized from the one before it."""
+    levels = [img]
+    for shape in _level_shapes(img.shape[0], img.shape[1], params)[1:]:
+        levels.append(resize_level(levels[-1], shape))
+    return levels
+
+
 def orb_detect(img: Tensor, params: OrbParams = OrbParams()) -> FeatureSet:
     """Detect + describe up to ``params.max_features`` keypoints.
 
     ``img``: (H, W) float32 grayscale in [0, 1]. Per-level budgets are
     proportional to level area, as in OpenCV ORB.
     """
-    from mvslam_tpu_torch.ops.features_cuda import fast_nms_harris_rank
+    from mvslam_tpu_torch.ops.features_cuda import (
+        fast_nms_harris_rank_pyramid,
+    )
 
     if params.batched or params.subpixel:
         raise NotImplementedError(
             "OrbParams.batched / subpixel are not ported yet")
     dtype, dev = img.dtype, img.device
-    H, W = img.shape
-    L = params.num_levels
-    shapes = _level_shapes(H, W, params)
     budgets = _level_budgets(params)
 
+    levels = pyramid(img, params)
+    ranks = fast_nms_harris_rank_pyramid(levels, params.fast_threshold,
+                                         params.harris_k, params.border)
+
     parts = []
-    level_img = img
-    for l in range(L):
+    for l, (level_img, rank) in enumerate(zip(levels, ranks)):
         w = level_img.shape[1]
         k_l = int(budgets[l])
-        rank = fast_nms_harris_rank(level_img, params.fast_threshold,
-                                    params.harris_k, params.border)
         vals, idx = top_k(rank.reshape(-1), k_l)
         xy_int = torch.stack([(idx % w).to(dtype), (idx // w).to(dtype)],
                              dim=-1)
@@ -336,6 +347,4 @@ def orb_detect(img: Tensor, params: OrbParams = OrbParams()) -> FeatureSet:
             desc=_descriptors(smooth, angles),
             mask=valid,
         ))
-        if l + 1 < L:
-            level_img = resize_level(level_img, shapes[l + 1])
     return FeatureSet(*(torch.cat(field) for field in zip(*parts)))

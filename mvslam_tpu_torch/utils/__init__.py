@@ -1,1 +1,1 @@
-"""Synthetic test scenes."""
+"""Synthetic test scenes and device timing helpers."""

@@ -1,0 +1,56 @@
+"""Timing on the card: eager issue rate and device time of a launch.
+
+Both helpers need a CUDA device and raise without one. ``cuda_ms`` times
+``fn`` as the host issues it (Python, allocator and launch included, so a
+short kernel shows the host's issue rate). ``graph_ms`` captures ``fn``
+in a CUDA graph and replays it, so the host is out of the loop (but for
+the replay call itself) and what remains is the device time of ``fn``'s
+launches. The capture also
+proves that ``fn`` launches on torch's current stream and synchronises
+nothing: anything else fails the capture.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+
+def _between_events(fn: Callable[[], object], reps: int) -> float:
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def cuda_ms(fn: Callable[[], object], reps: int = 50, warmup: int = 5) -> float:
+    """Milliseconds per eager call of ``fn``, CUDA events around ``reps``
+    calls after ``warmup``."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    return _between_events(fn, reps)
+
+
+def graph_ms(fn: Callable[[], object], reps: int = 50, warmup: int = 5,
+             calls: int = 1) -> float:
+    """Milliseconds per call of ``fn`` in a CUDA graph that holds ``calls``
+    of them in a row, CUDA events around ``reps`` replays after ``warmup``.
+    With one call a replay's own cost on the host can exceed a short
+    kernel's time; with many, the calls run back to back on the device."""
+    fn()                                   # build, load and cache before capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        kept = [fn() for _ in range(calls)]   # outputs live as long as the graph
+    for _ in range(warmup):
+        graph.replay()
+    torch.cuda.synchronize()
+    ms = _between_events(graph.replay, reps) / calls
+    del kept
+    return ms

@@ -6,6 +6,8 @@ against on the card) is held to the JAX package's unfused composition and
 to the Pallas kernel itself, run by the Pallas interpreter.
 """
 
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -69,12 +71,80 @@ def test_rank_ref_matches_pallas_kernel_interpreted():
 
 def test_dispatcher_runs_plain_version_on_cpu():
     img = torch.from_numpy(_frame(96, 128))
-    before = tfc.fast_nms_harris_rank.launches
+    before = tfc.fast_nms_harris_rank_pyramid.launches
     got = tfc.fast_nms_harris_rank(img, P.fast_threshold, P.harris_k, P.border)
     want = tfc.fast_nms_harris_rank_ref(img, P.fast_threshold, P.harris_k,
                                         P.border)
     assert torch.equal(got, want)
-    assert tfc.fast_nms_harris_rank.launches == before
+    assert tfc.fast_nms_harris_rank_pyramid.launches == before
+
+
+def _pyramid(h, w):
+    return tf.pyramid(torch.from_numpy(_frame(h, w)))
+
+
+@pytest.mark.parametrize("size", [(120, 160), (100, 70)])
+def test_pyramid_call_on_cpu_maps_plain_version_over_levels(size):
+    levels = _pyramid(*size)
+    before = tfc.fast_nms_harris_rank_pyramid.launches
+    got = tfc.fast_nms_harris_rank_pyramid(levels, P.fast_threshold,
+                                           P.harris_k, P.border)
+    assert tfc.fast_nms_harris_rank_pyramid.launches == before
+    assert len(got) == len(levels) == 8
+    for lv, g in zip(levels, got):
+        want = tfc.fast_nms_harris_rank_ref(lv, P.fast_threshold, P.harris_k,
+                                            P.border)
+        assert g.shape == lv.shape
+        assert torch.equal(g, want)
+
+
+@pytest.mark.parametrize("bad", ["float64", "non_contiguous", "3d", "empty",
+                                 "too_many_levels", "no_levels"])
+def test_wrappers_reject_what_the_kernel_does_not_take(bad):
+    """The checks run before any device branch, so they hold on the CPU."""
+    lv = torch.from_numpy(_frame(96, 128))
+    args = (P.fast_threshold, P.harris_k, P.border)
+    if bad == "too_many_levels":
+        levels = [lv] * (tfc.MAX_LEVELS + 1)
+    elif bad == "no_levels":
+        levels = []
+    else:
+        x = {"float64": lv.double(), "non_contiguous": lv.t(),
+             "3d": lv[None], "empty": lv[:0]}[bad]
+        levels = [lv, x]
+        with pytest.raises(ValueError):
+            tfc.fast_nms_harris_rank(x, *args)
+    with pytest.raises(ValueError):
+        tfc.fast_nms_harris_rank_pyramid(levels, *args)
+    # at the limit the call goes through
+    assert len(tfc.fast_nms_harris_rank_pyramid(
+        [lv[:48, :48].contiguous()] * tfc.MAX_LEVELS, *args)) == tfc.MAX_LEVELS
+
+
+@pytest.mark.parametrize("size,tiles", [((288, 384), 706), ((480, 640), 1933),
+                                        ((100, 70), 75)])
+def test_level_table(size, tiles):
+    """Offsets dense and increasing, tile prefixes those of 32x16 tiles."""
+    params = tf.OrbParams()
+    shapes = tf._level_shapes(*size, params)
+    tab = tfc.level_table(shapes)
+    assert tab.offsets[0] == 0 and tab.tile_first[0] == 0
+    for l, (h, w) in enumerate(shapes):
+        assert min(h, w) >= 2 * params.border + 1
+        nxt_off = tab.offsets[l + 1] if l + 1 < len(shapes) else tab.total_pixels
+        nxt_tile = (tab.tile_first[l + 1] if l + 1 < len(shapes)
+                    else tab.total_tiles)
+        assert nxt_off - tab.offsets[l] == h * w
+        assert nxt_tile - tab.tile_first[l] == -(-h // 16) * -(-w // 32)
+    assert tab.total_pixels == sum(h * w for h, w in shapes)
+    assert tab.total_tiles == tiles
+    if size == (100, 70):                   # small levels clamp to 2*border+1
+        assert shapes[-1] == (39, 39)
+    # the table counts the tiles the kernel's source is written for
+    src = tfc._SOURCE.read_text()
+    for name, value in (("TILE_W", tfc.TILE[0]), ("TILE_H", tfc.TILE[1]),
+                        ("MAX_LEVELS", tfc.MAX_LEVELS)):
+        assert re.search(rf"constexpr int {name} = {value};", src), name
 
 
 def test_dispatcher_rejects_border_below_halo():
@@ -160,6 +230,20 @@ def orb_pair():
     fj = jf.orb_detect(jnp.asarray(img, jnp.float32), jf.OrbParams())
     ft = tf.orb_detect(torch.from_numpy(img), tf.OrbParams())
     return jax.tree_util.tree_map(np.asarray, fj), ft
+
+
+def test_orb_detect_on_clamped_pyramid_matches():
+    """A frame so small that the upper levels clamp to 2 * border + 1: the
+    pyramid-first detector keeps the JAX detector's keypoints."""
+    img = _frame(100, 140)
+    fj = jf.orb_detect(jnp.asarray(img, jnp.float32), jf.OrbParams())
+    ft = tf.orb_detect(torch.from_numpy(img), tf.OrbParams())
+    np.testing.assert_array_equal(ft.mask.numpy(), np.asarray(fj.mask))
+    np.testing.assert_array_equal(ft.octave.numpy(), np.asarray(fj.octave))
+    m = np.asarray(fj.mask)
+    assert m.sum() > 20
+    np.testing.assert_array_equal(np.sort(ft.xy.numpy()[m], axis=0),
+                                  np.sort(np.asarray(fj.xy)[m], axis=0))
 
 
 def test_orb_detect_masks_match(orb_pair):

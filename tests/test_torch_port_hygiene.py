@@ -2,11 +2,13 @@
 package, and its numpy copies (scene renderer, rBRIEF pattern) equal the
 originals; its state converter round-trips."""
 
+import inspect
 import os
 import subprocess
 import sys
 
 import numpy as np
+import pytest
 import torch
 
 from helpers import render_planes_sequence as render_reference
@@ -24,6 +26,8 @@ def test_port_imports_no_jax():
         "import sys\n"
         "import mvslam_tpu_torch, mvslam_tpu_torch.frontend.vo_jit\n"
         "import mvslam_tpu_torch.convert, mvslam_tpu_torch.ops.features_cuda\n"
+        "import mvslam_tpu_torch.utils.timing\n"
+        "import chip_smoke, k1_device_time\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'mvslam_tpu'))\n"
         "assert not bad, bad\n"
@@ -52,20 +56,28 @@ def test_brief_pattern_equals_jax_package():
 def test_state_round_trip():
     params = VoJitParams(map_capacity=16, init_window=2,
                          orb=tf.OrbParams(max_features=8))
-    s = vo_init_state(params, seed=3)
+    s = vo_init_state(params, device="cpu", seed=3)
     rng = np.random.default_rng(0)
     d = state_to_numpy(s)
     d["map_desc"] = rng.integers(0, 2 ** 32, size=d["map_desc"].shape,
                                  dtype=np.uint64).astype(np.uint32)
     d["map_pos"] = rng.normal(size=d["map_pos"].shape).astype(np.float32)
     d["map_valid"][::3] = True
-    back = state_to_numpy(state_from_numpy(d))
+    back = state_to_numpy(state_from_numpy(d, device="cpu"))
     assert back.keys() == d.keys()
     for k in d:
         np.testing.assert_array_equal(back[k], d[k], err_msg=k)
         assert back[k].dtype == d[k].dtype, k
     # descriptor words cross as the same bits
-    t = state_from_numpy(d)
+    t = state_from_numpy(d, device="cpu")
     assert t.map_desc.dtype == torch.int32
     np.testing.assert_array_equal(t.map_desc.numpy().view(np.uint32),
                                   d["map_desc"])
+
+
+@pytest.mark.parametrize("entry", [vo_init_state, state_from_numpy],
+                         ids=lambda f: f.__name__)
+def test_entry_points_default_to_the_card(entry):
+    """The port's entry points build state on the card unless the caller
+    names another device; they do not probe for one."""
+    assert inspect.signature(entry).parameters["device"].default == "cuda"

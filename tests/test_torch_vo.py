@@ -60,7 +60,8 @@ def runs():
     jstep, tstep = jv.make_vo_step(jp), tv.make_vo_step(tp)
     js = jv.vo_init_state(jp)
     tstate = state_from_numpy(
-        {k: np.asarray(v) for k, v in js._asdict().items() if k != "key"})
+        {k: np.asarray(v) for k, v in js._asdict().items() if k != "key"},
+        device="cpu")
     jK, jf = jnp.asarray(K_inv, jnp.float32), jnp.asarray(FOCAL, jnp.float32)
     tK = torch.tensor(K_inv, dtype=torch.float32)
     tf = torch.tensor(FOCAL, dtype=torch.float32)
