@@ -118,7 +118,10 @@ class VoJitState(NamedTuple):
 
 
 class VoStepOut(NamedTuple):
-    success: Tensor             # () bool
+    # every branch of the step decides ``success`` on the host (the accept
+    # gates are read there), so it is a CPU tensor: reading it costs a
+    # caller no synchronisation
+    success: Tensor             # () bool, on the CPU
     mode: Tensor                # () int32 (after the step)
     pose_R: Tensor
     pose_t: Tensor
@@ -286,7 +289,7 @@ def _make_vo_step_fns(params: VoJitParams = VoJitParams()):
             return torch.full((), v, dtype=dt, device=dev)
 
         return VoStepOut(
-            success=scalar(success, torch.bool), mode=mode,
+            success=torch.tensor(success, dtype=torch.bool), mode=mode,
             pose_R=pose_R, pose_t=pose_t,
             num_inliers=scalar(num_inliers, torch.int32),
             mean_error=scalar(mean_error, state.pose_t.dtype),
@@ -576,7 +579,8 @@ def _make_vo_step_fns(params: VoJitParams = VoJitParams()):
         ok = ((n_inl >= p.min_track_inliers)
               & (mean_err <= p.max_track_mean_error)
               & torch.all(torch.isfinite(pose.t)))
-        if bool(ok):
+        ok = bool(ok)
+        if ok:
             pts_ref = result.points
             info_ref = result.point_information
             w_old = torch.where(old_ok, obs_slots, torch.full_like(obs_slots, M))

@@ -152,6 +152,19 @@ class SE3(NamedTuple):
         V_inv = _eye_like(K) - 0.5 * K + G[..., None, None] * (K @ K)
         return torch.cat([_matvec(V_inv, self.t), w], dim=-1)
 
+    @staticmethod
+    def from_matrix(M: Tensor) -> "SE3":
+        """From (..., 4, 4) homogeneous (or (..., 3, 4)) matrices."""
+        return SE3(M[..., :3, :3], M[..., :3, 3])
+
+    def matrix(self) -> Tensor:
+        """(..., 4, 4) homogeneous matrix."""
+        top = self.matrix3x4()
+        bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=top.dtype,
+                              device=top.device).expand(
+            top.shape[:-2] + (1, 4))
+        return torch.cat([top, bottom], dim=-2)
+
     def matrix3x4(self) -> Tensor:
         """(..., 3, 4) projection-style matrix ``[R | t]``."""
         return torch.cat([self.R, self.t[..., None]], dim=-1)

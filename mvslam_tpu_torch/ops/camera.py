@@ -1,10 +1,13 @@
 """Pinhole camera model (port of ``mvslam_tpu.ops.camera``): intrinsics
-``K`` and world->camera extrinsics ``P``, batched project/normalize."""
+``K`` and world->camera extrinsics ``P``, batched project/normalize, and
+the text-file format ``camera.config``: line 1 = ``fx fy shear px py``,
+line 2 = the 6-dof se3 of ``P`` (translation-first tangent)."""
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from mvslam_tpu_torch.math.lie import SE3
@@ -47,3 +50,23 @@ class PinholeCamera(NamedTuple):
         p_h = torch.cat([image_points, torch.ones_like(image_points[..., :1])],
                         dim=-1)
         return p_h @ self.K_inv.T
+
+    # -- IO (host-side text format) -------------------------------------------
+    def save_to_file(self, filename: str) -> None:
+        K = self.K.detach().cpu().numpy().astype(np.float64)
+        se3 = self.P.log().detach().cpu().numpy().astype(np.float64)
+        with open(filename, "w") as f:
+            f.write(f"{K[0,0]:.17g} {K[1,1]:.17g} {K[0,1]:.17g} "
+                    f"{K[0,2]:.17g} {K[1,2]:.17g}\n")
+            f.write(" ".join(f"{v:.17g}" for v in se3) + "\n")
+
+    @staticmethod
+    def load_from_file(filename: str, dtype=torch.float32,
+                       device=None) -> "PinholeCamera":
+        with open(filename, "r") as f:
+            values = f.read().split()
+        fx, fy, shear, px, py = (float(v) for v in values[:5])
+        se3 = np.array([float(v) for v in values[5:11]], dtype=np.float64)
+        P = SE3.exp(torch.tensor(se3, dtype=dtype, device=device))
+        return PinholeCamera.from_params(fx, fy, shear, px, py, P,
+                                         dtype=dtype, device=device)

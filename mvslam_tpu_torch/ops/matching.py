@@ -31,15 +31,16 @@ class MatchResult(NamedTuple):
 
 
 def unpack_pm1(desc: Tensor) -> Tensor:
-    """(K, 8) int32 words -> (K, 256) float32 in {-1, +1}."""
+    """(..., K, 8) int32 words -> (..., K, 256) float32 in {-1, +1}."""
     shifts = torch.arange(32, device=desc.device)
     bits = (desc.to(torch.int64)[..., :, None] >> shifts) & 1
-    return (2 * bits.reshape(desc.shape[0], BITS) - 1).to(torch.float32)
+    return (2 * bits.reshape(desc.shape[:-1] + (BITS,)) - 1).to(torch.float32)
 
 
 def hamming_matrix(desc1: Tensor, desc2: Tensor) -> Tensor:
-    """All-pairs Hamming distances (K1, K2) int32."""
-    dots = unpack_pm1(desc1) @ unpack_pm1(desc2).T
+    """All-pairs Hamming distances (..., K1, K2) int32; leading dims of
+    ``desc2`` batch over train sets."""
+    dots = unpack_pm1(desc1) @ unpack_pm1(desc2).transpose(-1, -2)
     return ((BITS - dots) * 0.5).to(torch.int32)
 
 
@@ -49,12 +50,14 @@ def match_features(desc1: Tensor, mask1: Tensor, desc2: Tensor,
     """kNN(2) + Lowe ratio matching of query set 1 against train set 2:
     keep a match when ``d1 < ratio * d2`` and ``d1 <= max_distance``.
     Top-2 by a stable sort: lower train index first on ties, as
-    ``jax.lax.top_k``."""
+    ``jax.lax.top_k``. ``desc2`` (..., K2, 8) and ``mask2`` (..., K2) may
+    carry leading dims: one query set against a batch of train sets in one
+    call, every result field (..., K1)."""
     D = hamming_matrix(desc1, desc2)
-    D = torch.where(mask2[None, :], D, torch.full_like(D, INVALID_DIST))
-    top, idx = torch.sort(D, dim=1, stable=True)
-    d1, d2 = top[:, 0], top[:, 1]
-    best = idx[:, 0]
+    D = torch.where(mask2[..., None, :], D, torch.full_like(D, INVALID_DIST))
+    top, idx = torch.sort(D, dim=-1, stable=True)
+    d1, d2 = top[..., 0], top[..., 1]
+    best = idx[..., 0]
     ok = mask1 & (d1 < ratio * d2) & (d1 <= BITS)
     if max_distance is not None:
         ok = ok & (d1 <= max_distance)

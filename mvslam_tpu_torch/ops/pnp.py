@@ -160,8 +160,9 @@ def pnp_ransac_core(X: Tensor, r: Tensor, mask: Tensor, num_hypotheses: int,
     errors = torch.where(flat_valid[:, None], errors,
                          torch.full_like(errors, math.inf))
     best, inl, _ = ransac_mod._select_best(errors, mask, thr_sq)
-    pose = SE3(poses.R[best], poses.t[best])
-    best_inl = inl[best]
+    pose = SE3(ransac_mod.take_best(poses.R, best),
+               ransac_mod.take_best(poses.t, best))
+    best_inl = ransac_mod.take_best(inl, best)
 
     if refit:
         # linear DLT refit over the consensus set; a degenerate (planar) set

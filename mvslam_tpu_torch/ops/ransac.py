@@ -37,6 +37,12 @@ def sample_minimal_sets(mask: Tensor, num_sets: int, k: int,
     return idx[:, :k]
 
 
+def take_best(x: Tensor, best: Tensor) -> Tensor:
+    """``x[best]`` for a 0-dim index tensor, kept on the device: indexing
+    with a 0-dim tensor reads it on the host first (a synchronisation)."""
+    return x.index_select(0, best.reshape(1))[0]
+
+
 class RansacResult(NamedTuple):
     model: Tensor          # best model parameters
     inlier_mask: Tensor    # (N,) bool
@@ -71,8 +77,8 @@ def essential_ransac(r1: Tensor, r2: Tensor, mask: Tensor,
     Es = epipolar.find_essential_matrix(s1, s2, w)
     errors = epipolar.sampson_error(Es, r1[None], r2[None])
     best, inl, _ = _select_best(errors, mask, threshold_sq)
-    E = Es[best]
-    best_inl = inl[best]
+    E = take_best(Es, best)
+    best_inl = take_best(inl, best)
 
     if refit:
         E_fit, inl_fit = E, best_inl

@@ -10,6 +10,7 @@ import torch
 from mvslam_tpu_torch.math.lie import SE3
 from mvslam_tpu_torch.ops import ba as ba_mod
 from mvslam_tpu_torch.ops import epipolar, triangulate
+from mvslam_tpu_torch.ops.ransac import take_best
 
 Tensor = torch.Tensor
 
@@ -34,8 +35,8 @@ def recover_pose_and_points(E: Tensor, r1: Tensor, r2: Tensor,
     front = triangulate.cheirality_mask(P1s, P2s, X, min_depth)
     good = front & inlier_mask[None, :]
     best = torch.argmax(torch.sum(good, dim=-1))
-    pose2in1 = SE3(Rs[best], ts[best]).inverse()
-    return pose2in1, X[best], good[best]
+    pose2in1 = SE3(take_best(Rs, best), take_best(ts, best)).inverse()
+    return pose2in1, take_best(X, best), take_best(good, best)
 
 
 class SfmRefineResult(NamedTuple):

@@ -83,3 +83,13 @@ def render_planes_sequence(ts, h=240, w=320, focal=280.0, seed=42,
         band = ys > (0.62 * h)
         frames.append(np.where(band, fg, img).astype(np.float32))
     return np.stack(frames)
+
+
+def ellipse_loop(n: int = 90, a: float = 2.75, b: float = 0.35) -> np.ndarray:
+    """Camera translations (n, 3) on a closed ellipse in the x-z plane (plus
+    a small y wobble), starting at theta = pi/2 where the velocity is pure
+    +x: the loop-closure scenario (the JAX package's
+    ``tests/test_loop_closure.py``)."""
+    th = np.linspace(np.pi / 2, np.pi / 2 + 2 * np.pi, n)
+    return np.stack(
+        [a * (1 - np.cos(th)), 0.02 * np.sin(3 * th), b * np.sin(th)], 1)

@@ -1,17 +1,22 @@
-"""Timing on the card: eager issue rate and device time of a launch.
+"""Timing on the card: eager time and device time of a launch, and
+where a piece of code synchronises with the device.
 
-Both helpers need a CUDA device and raise without one. ``cuda_ms`` times
+All helpers need a CUDA device and raise without one. ``cuda_ms`` times
 ``fn`` as the host issues it (Python, allocator and launch included, so a
 short kernel shows the host's issue rate). ``graph_ms`` captures ``fn``
 in a CUDA graph and replays it, so the host is out of the loop (but for
 the replay call itself) and what remains is the device time of ``fn``'s
 launches. The capture also
 proves that ``fn`` launches on torch's current stream and synchronises
-nothing: anything else fails the capture.
+nothing: anything else fails the capture. ``sync_sites`` runs ``fn`` under
+torch's sync debug mode and returns the source line of every synchronising
+call it made (a read of a device value, an upload from pageable memory).
 """
 
 from __future__ import annotations
 
+import os
+import warnings
 from typing import Callable
 
 import torch
@@ -54,3 +59,17 @@ def graph_ms(fn: Callable[[], object], reps: int = 50, warmup: int = 5,
     ms = _between_events(graph.replay, reps) / calls
     del kept
     return ms
+
+
+def sync_sites(fn: Callable[[], object]) -> tuple[object, list[str]]:
+    """``fn()`` with every synchronising CUDA call recorded (torch's sync
+    debug mode warns on each): (result, ["file.py:line", ...])."""
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return out, [f"{os.path.basename(w.filename)}:{w.lineno}"
+                 for w in caught if "synchroniz" in str(w.message)]

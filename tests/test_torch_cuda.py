@@ -1,7 +1,9 @@
-"""The PyTorch port's CUDA kernel on the card: both wrappers against the
+"""The PyTorch port on the card. Its CUDA kernel: both wrappers against the
 plain version at the tracker's pyramid shapes, the pyramid call's views
 against per-level calls, the wrappers' checks and launch count, and the
-tracker's steps on the device. Every test needs a CUDA card
+tracker's steps on the device. Its SLAM path: the back-end, the sparse BA
+and the float64 graph solve, each against the same code on the CPU fed the
+same inputs. Every test needs a CUDA card
 and skips without one; this file imports no JAX, so on the card it runs as
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
@@ -11,10 +13,15 @@ import numpy as np
 import pytest
 import torch
 
+from mvslam_tpu_torch import convert
+from mvslam_tpu_torch.backend import pose_graph as pg
+from mvslam_tpu_torch.backend.slam import BackendParams, PoseGraphBackend
 from mvslam_tpu_torch.frontend.vo_jit import (
     VoJitParams, make_vo_step, vo_init_state,
 )
-from mvslam_tpu_torch.ops import features, features_cuda
+from mvslam_tpu_torch.math.lie import SE3
+from mvslam_tpu_torch.ops import ba_sparse, features, features_cuda
+from mvslam_tpu_torch.parallel.synthetic import make_sequence_ba_problem
 from mvslam_tpu_torch.utils.scene import render_planes_sequence
 
 pytestmark = pytest.mark.cuda
@@ -147,3 +154,111 @@ def test_tracker_steps_on_the_card(dev):
     assert features_cuda.fast_nms_harris_rank_pyramid.launches == before + 3
     assert modes == [1, 2, 2]
     assert bool(torch.isfinite(state.pose_t).all())
+
+
+def test_backend_on_the_card_matches_cpu(dev):
+    """14 frames out and back (every tracked frame a keyframe, loops after
+    a gap of 3): the tracker runs once on the card, and a back-end on the
+    card and one on the CPU get the same snapshots and the same uniforms."""
+    h, w, focal = 240, 320, 280.0
+    x = np.concatenate([np.arange(7), 6 - np.arange(7)]) * 0.12
+    ts = np.stack([x, 0.02 * np.sin(np.arange(14) * 0.25), np.zeros(14)], 1)
+    frames = render_planes_sequence(ts, h=h, w=w, focal=focal, bg_slope=0.18)
+    K_inv = torch.tensor(np.linalg.inv(np.asarray(
+        [[focal, 0, (w - 1) / 2], [0, focal, (h - 1) / 2], [0, 0, 1]])),
+        dtype=torch.float32, device=dev)
+    params = VoJitParams()
+    step = make_vo_step(params)
+    state = vo_init_state(params, device=dev)
+    bp = BackendParams(keyframe_every=1, min_loop_gap=3)
+    card = PoseGraphBackend(bp, focal=focal, device=dev)
+    cpu = PoseGraphBackend(bp, focal=focal, device="cpu")
+    rng = np.random.default_rng(7)
+    for i in range(14):
+        state, out = step(state, torch.from_numpy(frames[i]).to(dev), K_inv,
+                          focal)
+        u = torch.tensor(rng.uniform(size=(2, 2, bp.loop_hypotheses,
+                                           params.orb.max_features)))
+        a = card.add_frame(i, state, out, uniforms=u.to(dev))
+        b = cpu.add_frame(
+            i, convert.state_from_numpy(convert.state_to_numpy(state),
+                                        device="cpu"),
+            convert.step_out_from_numpy(convert.step_out_to_numpy(out),
+                                        device="cpu"), uniforms=u)
+        assert a == b, i
+    assert card._desc.is_cuda and card._lm.shape[0] == bp.max_keyframes
+    assert [k.frame_idx for k in card.keyframes] == [
+        k.frame_idx for k in cpu.keyframes]
+    assert len(card.keyframes) >= 10
+    assert len(card.loop_edges) >= 3
+    for ce, pe in zip(card.loop_edges, cpu.loop_edges):
+        assert ce[:2] == pe[:2] and abs(ce[3] - pe[3]) <= 2
+        span = max(float(pe[2].t.norm()), 1.0)
+        # float32 resection + BA polish, reductions in another order
+        assert float((ce[2].t - pe[2].t).abs().max()) <= 2e-3 * span
+    # the float64 graphs on one skeleton agree closely
+    same = convert.backend_from_numpy(convert.backend_to_numpy(cpu), bp,
+                                      focal=focal, device=dev)
+    for method in ("sim3", "se3"):
+        got, want = same.optimize(method=method), cpu.optimize(method=method)
+        assert got.t.is_cuda and got.t.dtype == torch.float64
+        assert float((got.t.cpu() - want.t).abs().max()) <= 1e-6
+    got = same.correct_trajectory(same.optimize())
+    want = cpu.correct_trajectory(cpu.optimize())
+    for (gi, _, gt), (wi, _, wt) in zip(got, want):
+        assert gi == wi and np.abs(gt - wt).max() <= 1e-6
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-3),
+                                       (torch.float64, 1e-8)])
+def test_sparse_ba_on_the_card_matches_cpu(dev, dtype, tol):
+    """One seeded sequence problem on both devices (identical inputs);
+    poses relative to the 16-unit span, cost relative."""
+    kw = dict(num_frames=32, points_per_frame=16, window=4, dtype=dtype)
+    params = ba_sparse.SparseBAParams(max_iterations=8, cg_iterations=30)
+    on_card, _, _ = make_sequence_ba_problem(3, device=dev, **kw)
+    on_cpu, _, _ = make_sequence_ba_problem(3, device="cpu", **kw)
+    assert torch.equal(on_card.obs.cpu(), on_cpu.obs)
+    got = ba_sparse.sparse_ba_solve(on_card, params)
+    want = ba_sparse.sparse_ba_solve(on_cpu, params)
+    c0 = float(ba_sparse._cost(on_cpu.poses0, on_cpu.points0, on_cpu))
+    assert float(want.error) < 0.05 * c0 and float(got.error) < 0.05 * c0
+    assert abs(float(got.error) - float(want.error)) <= tol * (
+        1.0 + float(want.error))
+    assert float((got.poses.t.cpu() - want.poses.t).abs().max()) <= tol * 16
+
+
+def test_float64_graph_solve_on_the_card(dev):
+    """A noisy 12-node ring with one closing edge, float64: the card and
+    the CPU take the same LM iterations to the same optimum."""
+    rng = np.random.default_rng(11)
+    n = 12
+    th = 2 * np.pi * np.arange(n) / n
+    xi = np.stack([3 * np.cos(th), 3 * np.sin(th), 0 * th, 0 * th, 0 * th,
+                   th + np.pi / 2], 1)
+    true = SE3.exp(torch.tensor(xi))
+    noisy = true.compose(SE3.exp(torch.tensor(
+        0.05 * rng.standard_normal((n, 6)))))
+    src = torch.arange(n)
+    dst = (src + 1) % n
+    rel = SE3(true.R[src], true.t[src]).inverse().compose(
+        SE3(true.R[dst], true.t[dst]))
+    prior_info = torch.zeros((n, 6, 6), dtype=torch.float64)
+    prior_info[0] = torch.eye(6, dtype=torch.float64) / pg.ORIGIN_STDDEV ** 2
+    data = pg.PoseGraphData(
+        noisy, torch.ones(n, dtype=torch.bool), src, dst, rel,
+        (100.0 * torch.eye(6, dtype=torch.float64)).expand(n, 6, 6).clone(),
+        torch.ones(n, dtype=torch.bool), noisy, prior_info)
+    on_card = convert.pose_graph_data_from_numpy(
+        convert.problem_to_numpy(data), device=dev)
+    assert on_card.poses.t.is_cuda and on_card.poses.t.dtype == torch.float64
+    got, want = pg.pose_graph_optimize(on_card), pg.pose_graph_optimize(data)
+    assert int(got.iterations) == int(want.iterations)
+    assert bool(got.converged) and bool(want.converged)
+    assert float(want.error) < 1e-3 * float(pg.pose_graph_cost(data))
+    assert float((got.poses.t.cpu() - want.poses.t).abs().max()) <= 1e-7
+    # the exact measurements pull the ring back onto the truth (node 0 is
+    # anchored at its noisy start, so compare relative poses)
+    est = SE3(got.poses.R[src], got.poses.t[src]).inverse().compose(
+        SE3(got.poses.R[dst], got.poses.t[dst]))
+    assert float((est.t.cpu() - rel.t).abs().max()) <= 1e-6

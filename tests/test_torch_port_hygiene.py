@@ -1,9 +1,13 @@
-"""The PyTorch port stands alone: it imports neither JAX nor the JAX
-package, and its numpy copies (scene renderer, rBRIEF pattern) equal the
-originals; its state converter round-trips."""
+"""The PyTorch port stands alone: no module of it (nor the scripts at the
+root that drive it) imports JAX or the JAX package, none steps down from
+the card to the CPU on its own, and its entry points default to the card;
+its numpy copies (scene renderer, rBRIEF pattern) equal the originals; its
+state converter round-trips."""
 
+import ast
 import inspect
 import os
+import pkgutil
 import subprocess
 import sys
 
@@ -19,15 +23,40 @@ from mvslam_tpu_torch.ops import features as tf
 from mvslam_tpu_torch.utils.scene import render_planes_sequence
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+ROOT_SCRIPTS = ("chip_smoke", "k1_device_time", "card_vs_cpu")
+
+
+def port_modules() -> list[str]:
+    """Every module of the port, found by walking its package."""
+    import mvslam_tpu_torch
+
+    return ["mvslam_tpu_torch"] + sorted(
+        m.name for m in pkgutil.walk_packages(mvslam_tpu_torch.__path__,
+                                              "mvslam_tpu_torch."))
+
+
+def port_sources() -> list[str]:
+    files = [os.path.join(REPO, f"{name}.py") for name in ROOT_SCRIPTS]
+    for base, _, names in os.walk(os.path.join(REPO, "mvslam_tpu_torch")):
+        files += [os.path.join(base, n) for n in names if n.endswith(".py")]
+    return sorted(files)
+
+
+def test_every_new_module_is_found():
+    mods = set(port_modules())
+    for name in ("ops.ba_sparse", "parallel.synthetic", "backend.pose_graph",
+                 "backend.graph", "backend.sim3_graph", "backend.slam",
+                 "apps.visual_odometer", "io.image", "viz.export",
+                 "utils.errors", "convert", "config"):
+        assert f"mvslam_tpu_torch.{name}" in mods, name
+    assert len(port_sources()) == len(mods) + len(ROOT_SCRIPTS)
 
 
 def test_port_imports_no_jax():
     code = (
-        "import sys\n"
-        "import mvslam_tpu_torch, mvslam_tpu_torch.frontend.vo_jit\n"
-        "import mvslam_tpu_torch.convert, mvslam_tpu_torch.ops.features_cuda\n"
-        "import mvslam_tpu_torch.utils.timing\n"
-        "import chip_smoke, k1_device_time\n"
+        "import importlib, sys\n"
+        f"for name in {port_modules() + list(ROOT_SCRIPTS)!r}:\n"
+        "    importlib.import_module(name)\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'mvslam_tpu'))\n"
         "assert not bad, bad\n"
@@ -39,6 +68,38 @@ def test_port_imports_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_no_source_names_jax_or_the_jax_package():
+    """Static check beside the import check: no import statement anywhere
+    in the port (function bodies included) names ``jax`` or ``mvslam_tpu``."""
+    for path in port_sources():
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            for name in names:
+                assert name.split(".")[0] not in ("jax", "jaxlib",
+                                                  "mvslam_tpu"), (path, name)
+
+
+def test_no_step_down_from_the_card():
+    """Nothing in the package probes for a card to choose a device: a CUDA
+    tensor takes the kernel or raises, and entry points take ``device``.
+    The scripts at the root probe only to refuse to run without a card."""
+    for path in port_sources():
+        with open(path) as f:
+            src = f.read()
+        if os.path.basename(path) in (f"{n}.py" for n in ROOT_SCRIPTS):
+            for line in src.splitlines():
+                if "is_available()" in line and "raise" not in line:
+                    assert line.strip().startswith("if not torch.cuda."), line
+        else:
+            assert "is_available" not in src, path
 
 
 def test_scene_renderer_equals_test_fixture():
@@ -75,9 +136,36 @@ def test_state_round_trip():
                                   d["map_desc"])
 
 
-@pytest.mark.parametrize("entry", [vo_init_state, state_from_numpy],
-                         ids=lambda f: f.__name__)
+def _entry_points():
+    from mvslam_tpu_torch import convert
+    from mvslam_tpu_torch.backend.graph import Graph
+    from mvslam_tpu_torch.backend.slam import PoseGraphBackend
+    from mvslam_tpu_torch.parallel import synthetic
+
+    return [vo_init_state, state_from_numpy, convert.step_out_from_numpy,
+            convert.sparse_ba_problem_from_numpy,
+            convert.pose_graph_data_from_numpy,
+            convert.sim3_graph_data_from_numpy, convert.backend_from_numpy,
+            PoseGraphBackend.__init__, Graph.__init__,
+            synthetic.make_sequence_ba_problem,
+            synthetic.make_window_ba_problem]
+
+
+@pytest.mark.parametrize("entry", _entry_points(),
+                         ids=lambda f: f.__qualname__)
 def test_entry_points_default_to_the_card(entry):
     """The port's entry points build state on the card unless the caller
     names another device; they do not probe for one."""
     assert inspect.signature(entry).parameters["device"].default == "cuda"
+
+
+def test_app_defaults_to_the_card(monkeypatch, tmp_path):
+    from mvslam_tpu_torch.apps import visual_odometer as app
+
+    seen = []
+    monkeypatch.setattr(app, "_run_pose_graph",
+                        lambda args, cam, paths: seen.append(args.device) or 0)
+    (tmp_path / "camera.config").write_text("1 1 0 0 0\n0 0 0 0 0 0\n")
+    (tmp_path / "image.txt").write_text("a.png\n")
+    assert app.main([str(tmp_path), "--pose-graph"]) == 0
+    assert seen == ["cuda"]
