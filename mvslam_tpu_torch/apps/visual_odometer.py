@@ -2,25 +2,30 @@
 (port of ``mvslam_tpu.apps.visual_odometer``).
 
 Loads ``system.param`` (optional) + ``camera.config`` + the ``image.txt``
-manifest from a dataset directory. With ``--pose-graph`` the replay runs
-the fused tracker with the pose-graph back-end attached (keyframe skeleton
-+ loop-closure detection + pose-graph LM; ``mvslam_tpu_torch.backend.slam``)
-and writes the raw trajectory (``trajectory.tum``), a PLY scene (map +
-camera frusta, ``scene.ply``) and the optimized trajectory
-(``trajectory_optimized.tum``).
+manifest from a dataset directory. By default every frame goes through the
+host-orchestrated front end (``FrameManager.add_frame`` ->
+``VisualOdometer.add_frame``); the app prints per-frame tracking status on
+stderr (unless ``--quiet``) and a summary line, writes the trajectory
+(``trajectory.tum``) and a PLY scene (map + camera frusta, ``scene.ply``),
+saves the odometer's state with ``--checkpoint`` and restores it before the
+replay with ``--resume``.
 
-Without ``--pose-graph`` the original feeds the host-orchestrated front end
-(``FrameManager`` -> ``VisualOdometer``), which is not ported yet (ROADMAP
-S12): the app says so and returns ``INVALID_ARGS``. ``--checkpoint`` and
-``--resume`` belong to that front end; combined with ``--pose-graph`` they
-are refused instead of ignored.
+With ``--pose-graph`` the replay runs the fused tracker with the pose-graph
+back-end attached (keyframe skeleton + loop-closure detection + pose-graph
+LM; ``mvslam_tpu_torch.backend.slam``) and also writes the optimized
+trajectory (``trajectory_optimized.tum``). The back-end's state is not
+checkpointed: ``--checkpoint`` and ``--resume`` combined with
+``--pose-graph`` are refused instead of ignored.
+
+Frames are read through ``mvslam_tpu_torch.io.image`` only (PIL): the JAX
+package's native prefetching JPEG loader is not part of this package.
 
 Everything runs on the card unless ``--device cpu`` is given.
 
 Usage:
-    python -m mvslam_tpu_torch.apps.visual_odometer DATASET_DIR --pose-graph
-        [--out-dir OUT] [--max-frames N] [--quiet] [--keyframe-every N]
-        [--device cuda|cpu]
+    python -m mvslam_tpu_torch.apps.visual_odometer DATASET_DIR
+        [--out-dir OUT] [--checkpoint CKPT] [--resume CKPT] [--max-frames N]
+        [--quiet] [--pose-graph] [--keyframe-every N] [--device cuda|cpu]
 """
 
 from __future__ import annotations
@@ -35,12 +40,14 @@ import torch
 
 from mvslam_tpu_torch import config
 from mvslam_tpu_torch.backend.slam import BackendParams, PoseGraphBackend
+from mvslam_tpu_torch.frontend import FrameManager, VisualOdometer
 from mvslam_tpu_torch.frontend.vo_jit import (
     VoJitParams, make_vo_step, vo_init_state,
 )
 from mvslam_tpu_torch.io import (
     iter_directory, load_image_grayscale, read_manifest,
 )
+from mvslam_tpu_torch.io.checkpoint import load_checkpoint, save_checkpoint
 from mvslam_tpu_torch.math.lie import SE3
 from mvslam_tpu_torch.ops.camera import PinholeCamera
 from mvslam_tpu_torch.utils.errors import ApplicationErrorCode
@@ -121,6 +128,66 @@ def _run_pose_graph(args, cam: PinholeCamera, image_paths) -> int:
     return ApplicationErrorCode.NONE
 
 
+def run_visual_odometer(frames, fm: FrameManager, vo: VisualOdometer,
+                        out_dir: str, quiet: bool = False, names=None,
+                        checkpoint: str | None = None):
+    """The default replay: every frame of ``frames`` (an iterable of (H, W)
+    float32 arrays or tensors in [0, 1]) through ``fm.add_frame`` and
+    ``vo.add_frame`` on their device, then the summary line, the files
+    into ``out_dir`` and, with ``checkpoint``, the odometer's state.
+    ``names`` labels the frames in the per-frame report (``quiet=False``,
+    which reads the pose on every frame); frame ``i`` is stamped ``0.1 *
+    (i + 1)`` seconds. Returns the per-frame results."""
+    results = []
+    t_start = time.time()
+    for i, img in enumerate(frames):
+        frame = fm.add_frame(0.1 * (i + 1), img)
+        res = vo.add_frame(frame)
+        results.append(res)
+        if not quiet:
+            pose = vo.get_camera_pose()
+            t = None if pose is None else pose.t.cpu().numpy().round(4)
+            name, total = "", ""
+            if names is not None:
+                name, total = f" [{names[i]}]", f"/{len(names)}"
+            print(f"frame {i + 1}{total}{name}: "
+                  f"{'tracked' if res.success else 'lost'} ({res.reason}) "
+                  f"inliers={res.num_inliers} t={t}", file=sys.stderr)
+    if vo.device.type == "cuda":
+        torch.cuda.synchronize(vo.device)
+    elapsed = time.time() - t_start
+    print(f"frame_total = {vo.frame_total}, "
+          f"frame_tracked = {vo.frame_tracked}, "
+          f"map_points = {vo.num_tracked_points}, "
+          f"fps = {len(results) / max(elapsed, 1e-9):.2f}")
+
+    os.makedirs(out_dir, exist_ok=True)
+    if vo.trajectory:
+        tum = os.path.join(out_dir, "trajectory.tum")
+        save_trajectory_tum(tum, vo.trajectory)
+        ply = os.path.join(out_dir, "scene.ply")
+        save_scene_ply(ply, vo.get_tracked_points(),
+                       [p for _, _, p in vo.trajectory])
+        print(f"wrote {tum} and {ply}")
+    if checkpoint:
+        save_checkpoint(vo, checkpoint)
+        print(f"wrote {checkpoint}")
+    return results
+
+
+def _run_visual_odometer(args, cam: PinholeCamera, image_paths) -> int:
+    """FrameManager -> VisualOdometer replay (the default mode)."""
+    fm = FrameManager(camera=cam, device=args.device)
+    vo = VisualOdometer(device=args.device)
+    if args.resume:
+        load_checkpoint(args.resume, vo)
+    run_visual_odometer((load_image_grayscale(p) for p in image_paths), fm,
+                        vo, args.out_dir or args.dataset, quiet=args.quiet,
+                        names=[os.path.basename(p) for p in image_paths],
+                        checkpoint=args.checkpoint)
+    return ApplicationErrorCode.NONE
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="visual-odometer", description=__doc__)
     ap.add_argument("dataset", help="directory with camera.config + image.txt")
@@ -137,12 +204,7 @@ def main(argv=None) -> int:
                     help="torch device to run on (default: the card)")
     args = ap.parse_args(argv)
 
-    if not args.pose_graph:
-        print("the replay without --pose-graph needs FrameManager and "
-              "VisualOdometer, which are not ported yet (ROADMAP S12); "
-              "run with --pose-graph", file=sys.stderr)
-        return ApplicationErrorCode.INVALID_ARGS
-    if args.checkpoint or args.resume:
+    if args.pose_graph and (args.checkpoint or args.resume):
         print("--checkpoint and --resume are not supported with "
               "--pose-graph (the back-end's state is not checkpointed)",
               file=sys.stderr)
@@ -171,7 +233,9 @@ def main(argv=None) -> int:
     except (OSError, ValueError) as e:
         print(f"bad camera config: {e}", file=sys.stderr)
         return ApplicationErrorCode.BAD_DATA
-    return _run_pose_graph(args, cam, image_paths)
+    if args.pose_graph:
+        return _run_pose_graph(args, cam, image_paths)
+    return _run_visual_odometer(args, cam, image_paths)
 
 
 if __name__ == "__main__":

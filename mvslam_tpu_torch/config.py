@@ -5,6 +5,7 @@ device. ``ParameterManager`` is the INI-style ``system.param`` store."""
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, Mapping
 
 import torch
@@ -16,6 +17,16 @@ DEFAULT_DTYPE = torch.float32
 def epsilon(dtype: torch.dtype = DEFAULT_DTYPE) -> float:
     """Smallest meaningful magnitude (machine epsilon of ``dtype``)."""
     return float(torch.finfo(dtype).eps)
+
+
+def tolerance(dtype: torch.dtype = DEFAULT_DTYPE) -> float:
+    """General-purpose small tolerance: 1000 * epsilon."""
+    return 1000.0 * epsilon(dtype)
+
+
+def infinity(dtype: torch.dtype = DEFAULT_DTYPE) -> float:
+    """A large-but-finite sentinel: a tenth of the dtype's maximum."""
+    return float(torch.finfo(dtype).max / 10.0)
 
 
 def taylor_threshold(dtype: torch.dtype = DEFAULT_DTYPE) -> float:
@@ -160,3 +171,18 @@ def save_to_file(filename: str) -> int:
 
 def get_value(module: str, key: str, default: Any):
     return ParameterManager.global_instance().get_value(module, key, default)
+
+
+@dataclasses.dataclass(frozen=True)
+class StaticShapes:
+    """Static shape budget of the pipeline: every per-frame quantity is
+    padded to these capacities and masked."""
+
+    max_features: int = 512          # ORB features per frame
+    max_matches: int = 512           # one candidate match per query feature
+    max_tracked_points: int = 1024   # capacity of the VO map pool
+    ransac_hypotheses: int = 256     # batched RANSAC (essential and PnP)
+    pyramid_levels: int = 8          # ORB pyramid depth
+
+
+DEFAULT_SHAPES = StaticShapes()

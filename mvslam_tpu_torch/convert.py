@@ -1,6 +1,7 @@
 """Numpy dicts to and from the port's data: the tracker state (its
-"weights"), a step's outputs, the BA and pose-graph problems, and the
-back-end's skeleton. The parity tests carry the same data through the JAX
+"weights"), a step's outputs, the BA and pose-graph problems, the
+back-end's skeleton, and the host-orchestrated front end's feature sets,
+frames and whole odometer. The parity tests carry the same data through the JAX
 package and the port with these; a run on the card and one on the CPU share
 their inputs the same way.
 
@@ -22,9 +23,13 @@ from mvslam_tpu_torch.backend.sim3_graph import Sim3, Sim3GraphData
 from mvslam_tpu_torch.backend.slam import (
     _STORES, BackendParams, Keyframe, PoseGraphBackend, _host_se3,
 )
+from mvslam_tpu_torch.frontend.data_types import Frame
+from mvslam_tpu_torch.frontend.visual_odometer import VisualOdometer, VoState
 from mvslam_tpu_torch.frontend.vo_jit import VoJitState, VoStepOut
 from mvslam_tpu_torch.math.lie import SE3
 from mvslam_tpu_torch.ops.ba_sparse import SparseBAProblem
+from mvslam_tpu_torch.ops.camera import PinholeCamera
+from mvslam_tpu_torch.ops.features import FeatureSet
 
 _DESC_FIELDS = ("map_desc", "lf_desc", "rb_desc")
 _INT_FIELDS = ("mode", "step", "map_seen", "lf_assoc", "rb_step", "rb_pos",
@@ -248,3 +253,174 @@ def backend_from_numpy(d: dict, params: BackendParams = BackendParams(),
         for i, s, R, t in zip(d["raw_frame_idx"], d["raw_segment"],
                               d["raw_R"], d["raw_t"])]
     return b
+
+
+# ---------------------------------------------------------------------------
+# The host-orchestrated front end. Every ``*_to_numpy`` here also reads the
+# JAX package's object of the same name (same attributes, numpy or JAX
+# arrays); descriptor words leave as uint32 and arrive as int32, the same
+# bits.
+# ---------------------------------------------------------------------------
+
+def _words_u32(v) -> np.ndarray:
+    return np.ascontiguousarray(_numpy(v)).view(np.uint32)
+
+
+def _words_i32(a, device) -> torch.Tensor:
+    return torch.from_numpy(
+        np.ascontiguousarray(a).view(np.int32).copy()).to(device)
+
+
+def feature_set_to_numpy(feats) -> dict:
+    d = {k: _numpy(v) for k, v in feats._asdict().items()}
+    d["desc"] = _words_u32(feats.desc)
+    return d
+
+
+def feature_set_from_numpy(d: dict, device="cuda",
+                           dtype=torch.float32) -> FeatureSet:
+    def flt(name):
+        return torch.from_numpy(np.asarray(d[name], np.float64)).to(
+            device, dtype)
+
+    return FeatureSet(
+        xy=flt("xy"), response=flt("response"), angle=flt("angle"),
+        octave=torch.from_numpy(np.asarray(d["octave"], np.int32)).to(device),
+        sigma=flt("sigma"), desc=_words_i32(d["desc"], device),
+        mask=torch.from_numpy(np.asarray(d["mask"], bool)).to(device))
+
+
+def frame_to_numpy(frame) -> dict:
+    """A ``Frame`` as a dict: scalars, the feature set under ``feat_*``,
+    rays and sigma, and camera and images where the frame has them."""
+    d = {"id": frame.id, "capture_time": frame.capture_time,
+         "focal": frame.focal, "rays": _numpy(frame.rays),
+         "sigma": _numpy(frame.sigma)}
+    d.update({f"feat_{k}": v
+              for k, v in feature_set_to_numpy(frame.features).items()})
+    if frame.camera is not None:
+        d.update(camera_K=_numpy(frame.camera.K),
+                 camera_R=_numpy(frame.camera.P.R),
+                 camera_t=_numpy(frame.camera.P.t))
+    for name in ("image", "image_smooth"):
+        if getattr(frame, name) is not None:
+            d[name] = _numpy(getattr(frame, name))
+    return d
+
+
+def frame_from_numpy(d: dict, device="cuda", dtype=torch.float32) -> Frame:
+    def flt(name):
+        return None if name not in d else torch.from_numpy(
+            np.asarray(d[name], np.float64)).to(device, dtype)
+
+    camera = None
+    if "camera_K" in d:
+        camera = PinholeCamera(flt("camera_K"),
+                               SE3(flt("camera_R"), flt("camera_t")))
+    feats = feature_set_from_numpy(
+        {k[len("feat_"):]: v for k, v in d.items() if k.startswith("feat_")},
+        device, dtype)
+    return Frame(id=int(d["id"]), capture_time=float(d["capture_time"]),
+                 features=feats, rays=flt("rays"), sigma=flt("sigma"),
+                 focal=float(d["focal"]), camera=camera, image=flt("image"),
+                 image_smooth=flt("image_smooth"))
+
+
+def _se3_f64(pose) -> tuple[np.ndarray, np.ndarray]:
+    return (np.asarray(_numpy(pose.R), np.float64),
+            np.asarray(_numpy(pose.t), np.float64))
+
+
+def odometer_to_numpy(vo, window: bool = True) -> dict:
+    """The whole state of a ``VisualOdometer``: counters and state name,
+    the map, the trajectory, and when TRACKING the last frame with what is
+    carried beside it (pose, association, refined observations,
+    templates), under the checkpoint's names and dtypes; with ``window``
+    the frames queued for the bootstrap (``"window"``: a list of
+    ``frame_to_numpy`` dicts) as well."""
+    m = vo._map
+    traj = vo.trajectory
+    poses = [_se3_f64(t[2]) for t in traj]
+    d = {
+        "state": vo.state.name, "step": vo._step,
+        "frame_total": vo.frame_total, "frame_tracked": vo.frame_tracked,
+        "map_positions": _numpy(m.positions), "map_desc": _words_u32(m.desc),
+        "map_templates": _numpy(m.templates), "map_valid": _numpy(m.valid),
+        "map_last_seen": _numpy(m.last_seen),
+        "traj_ids": np.asarray([t[0] for t in traj], np.int64),
+        "traj_times": np.asarray([t[1] for t in traj], np.float64),
+        "traj_R": np.asarray([R for R, _ in poses],
+                             np.float64).reshape(len(traj), 3, 3),
+        "traj_t": np.asarray([t for _, t in poses],
+                             np.float64).reshape(len(traj), 3),
+    }
+    if vo.state.name == "TRACKING":
+        f = vo._last_frame
+        R, t = _se3_f64(vo._last_pose)
+        d.update(
+            last_frame={"id": f.id, "capture_time": f.capture_time,
+                        "focal": f.focal},
+            last_pose_R=R, last_pose_t=t,
+            last_assoc=_numpy(vo._last_assoc),
+            last_obs_rays=_numpy(vo._last_obs_rays),
+            last_obs_sigma=_numpy(vo._last_obs_sigma),
+            last_templates=_numpy(vo._last_templates),
+            frame_rays=_numpy(f.rays), frame_sigma=_numpy(f.sigma))
+        d.update({f"feat_{k}": v
+                  for k, v in feature_set_to_numpy(f.features).items()})
+    if window:
+        d["window"] = [frame_to_numpy(f) for f in vo._frames]
+    return d
+
+
+def odometer_from_numpy(d: dict, vo: VisualOdometer) -> VisualOdometer:
+    """Put an ``odometer_to_numpy`` dict (of either package's odometer)
+    into ``vo``, on ``vo``'s device; returns ``vo``. The restored last
+    frame carries no image: the next frame's KLT runs against the map's
+    and the last frame's templates, as live tracking does. A map of
+    another capacity than ``vo``'s raises ``ValueError``."""
+    dev = vo.device
+    m = vo._map
+    if tuple(np.shape(d["map_positions"])) != tuple(m.positions.shape):
+        raise ValueError("checkpoint map capacity differs from params")
+    vo.reset()
+    vo._step = int(d["step"])
+    vo.frame_total = int(d["frame_total"])
+    vo.frame_tracked = int(d["frame_tracked"])
+    m.positions.copy_(torch.from_numpy(np.asarray(d["map_positions"],
+                                                  np.float32)))
+    m.desc.copy_(_words_i32(d["map_desc"], dev))
+    m.templates.copy_(torch.from_numpy(np.asarray(d["map_templates"],
+                                                  np.float32)))
+    m.valid.copy_(torch.from_numpy(np.asarray(d["map_valid"], bool)))
+    m.last_seen.copy_(torch.from_numpy(np.asarray(d["map_last_seen"],
+                                                  np.int64)))
+
+    def f32(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+
+    def f64(a):
+        return torch.from_numpy(np.array(a, np.float64)).to(dev)
+
+    vo.trajectory = [
+        (int(i), float(t), SE3(f32(R), f32(tt)))
+        for i, t, R, tt in zip(d["traj_ids"], d["traj_times"], d["traj_R"],
+                               d["traj_t"])]
+    if d["state"] == "TRACKING":
+        feats = feature_set_from_numpy(
+            {k[len("feat_"):]: v for k, v in d.items()
+             if k.startswith("feat_")}, dev)
+        fmeta = d["last_frame"]
+        vo._last_frame = Frame(
+            id=fmeta["id"], capture_time=fmeta["capture_time"],
+            features=feats, rays=f32(d["frame_rays"]),
+            sigma=f32(d["frame_sigma"]), focal=fmeta["focal"])
+        vo._last_pose = SE3(f32(d["last_pose_R"]), f32(d["last_pose_t"]))
+        vo._last_assoc = torch.from_numpy(
+            np.array(d["last_assoc"], np.int64)).to(dev)
+        vo._last_obs_rays = f64(d["last_obs_rays"])
+        vo._last_obs_sigma = f64(d["last_obs_sigma"])
+        vo._last_templates = f32(d["last_templates"])
+        vo.state = VoState.TRACKING
+    vo._frames = [frame_from_numpy(f, dev) for f in d.get("window", [])]
+    return vo

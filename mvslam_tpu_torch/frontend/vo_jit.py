@@ -39,6 +39,9 @@ from mvslam_tpu_torch.ops import ba as ba_mod
 from mvslam_tpu_torch.ops import (epipolar, klt, matching, pnp, ransac,
                                   sfm)
 from mvslam_tpu_torch.ops.features import OrbParams, orb_detect
+from mvslam_tpu_torch.utils.indexing import allocate_slots as _allocate_slots
+from mvslam_tpu_torch.utils.indexing import masked_take as _masked_take
+from mvslam_tpu_torch.utils.indexing import set_rows as _set_rows
 
 Tensor = torch.Tensor
 
@@ -169,38 +172,6 @@ def vo_init_state(params: VoJitParams = VoJitParams(), device="cuda",
         frame_total=full((), 0, i32), frame_tracked=full((), 0, i32),
         gate_pair_err=full((), params.max_pair_mean_error, dtype),
     )
-
-
-def _masked_take(mask: Tensor, cap: int) -> tuple[Tensor, Tensor]:
-    """First ``cap`` true positions: (idx (cap,), valid (cap,))."""
-    order = torch.sort((~mask).to(torch.int32), stable=True).indices
-    idx = order[:cap]
-    return idx, mask[idx]
-
-
-def _allocate_slots(map_valid: Tensor, map_seen: Tensor, n: int) -> Tensor:
-    """n slots: free ones first, then least-recently-seen."""
-    keys = torch.where(map_valid, map_seen,
-                       torch.full_like(map_seen, torch.iinfo(torch.int32).min))
-    return torch.sort(keys, stable=True).indices[:n]
-
-
-def _set_rows(dst: Tensor, idx: Tensor, vals) -> Tensor:
-    """``dst.at[idx].set(vals, mode="drop")``: rows ``idx`` of a copy of
-    ``dst`` set to ``vals``; out-of-range indices are dropped, and among
-    duplicate indices the last write wins (the serial scatter order of the
-    JAX package on the CPU), deterministically on every device."""
-    n = dst.shape[0]
-    idx = idx.to(torch.int64)
-    tgt = torch.where((idx >= 0) & (idx < n), idx, torch.full_like(idx, n))
-    src = torch.arange(idx.shape[0], device=dst.device)
-    winner = torch.full((n + 1,), -1, dtype=torch.int64, device=dst.device)
-    winner = winner.scatter_reduce(0, tgt, src, reduce="amax")[:n]
-    vals = torch.as_tensor(vals, dtype=dst.dtype, device=dst.device).expand(
-        (idx.shape[0],) + dst.shape[1:])
-    picked = vals[torch.clamp(winner, min=0)]
-    hit = (winner >= 0).view((n,) + (1,) * (dst.dim() - 1))
-    return torch.where(hit, picked, dst)
 
 
 class _FrameArrays(NamedTuple):

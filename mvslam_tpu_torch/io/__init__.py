@@ -1,4 +1,6 @@
-"""Host-side IO."""
+"""Host-side IO: images and manifests here; checkpoints in
+``mvslam_tpu_torch.io.checkpoint`` (imported by name: it pulls in the
+front end)."""
 
 from mvslam_tpu_torch.io.image import (  # noqa: F401
     iter_directory as iter_directory,

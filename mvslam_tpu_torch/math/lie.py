@@ -92,6 +92,46 @@ def so3_log(R: Tensor) -> Tensor:
     return v * A[..., None]
 
 
+def so3_rectify(R: Tensor) -> Tensor:
+    """Gram-Schmidt re-orthonormalization over the rows."""
+    u0 = R[..., 0, :]
+    u0 = u0 / torch.linalg.vector_norm(u0, dim=-1, keepdim=True)
+    u1 = R[..., 1, :]
+    u1 = u1 - torch.sum(u1 * u0, dim=-1, keepdim=True) * u0
+    u1 = u1 / torch.linalg.vector_norm(u1, dim=-1, keepdim=True)
+    u2 = torch.linalg.cross(u0, u1)
+    return torch.stack([u0, u1, u2], dim=-2)
+
+
+def so3_from_rpy(roll, pitch, yaw, dtype=None) -> Tensor:
+    """Tait-Bryan construction ``Rz(yaw) @ Ry(pitch) @ Rx(roll)``."""
+    roll, pitch, yaw = (torch.as_tensor(a, dtype=dtype)
+                        for a in (roll, pitch, yaw))
+    cr, sr = torch.cos(roll), torch.sin(roll)
+    cp, sp = torch.cos(pitch), torch.sin(pitch)
+    cy, sy = torch.cos(yaw), torch.sin(yaw)
+    row0 = torch.stack([cy * cp, cy * sp * sr - sy * cr,
+                        cy * sp * cr + sy * sr], dim=-1)
+    row1 = torch.stack([sy * cp, sy * sp * sr + cy * cr,
+                        sy * sp * cr - cy * sr], dim=-1)
+    row2 = torch.stack([-sp, cp * sr, cp * cr], dim=-1)
+    return torch.stack([row0, row1, row2], dim=-2)
+
+
+def so3_adjoint(R: Tensor) -> Tensor:
+    """Adjoint of SO(3) is the rotation matrix itself:
+    ``R exp(w^) R^T = exp((R w)^)``."""
+    return R
+
+
+def so3_rpy(R: Tensor) -> tuple[Tensor, Tensor, Tensor]:
+    """(roll, pitch, yaw) extraction, inverse of :func:`so3_from_rpy`."""
+    roll = torch.atan2(R[..., 2, 1], R[..., 2, 2])
+    pitch = torch.asin(torch.clamp(-R[..., 2, 0], -1.0, 1.0))
+    yaw = torch.atan2(R[..., 1, 0], R[..., 0, 0])
+    return roll, pitch, yaw
+
+
 def _matvec(M: Tensor, v: Tensor) -> Tensor:
     return (M @ v[..., None])[..., 0]
 
@@ -152,6 +192,19 @@ class SE3(NamedTuple):
         V_inv = _eye_like(K) - 0.5 * K + G[..., None, None] * (K @ K)
         return torch.cat([_matvec(V_inv, self.t), w], dim=-1)
 
+    def adjoint(self) -> Tensor:
+        """(..., 6, 6) adjoint, ``T exp(xi) T^-1 = exp(adjoint() @ xi)``,
+        in the translation-first layout: ``[[R, skew(t) R], [0, R]]``.
+        Transports twists and, as ``Ad S Ad^T``, 6x6 covariances between
+        frames."""
+        top = torch.cat([self.R, skew(self.t) @ self.R], dim=-1)
+        bot = torch.cat([torch.zeros_like(self.R), self.R], dim=-1)
+        return torch.cat([top, bot], dim=-2)
+
+    @property
+    def batch_shape(self) -> tuple:
+        return tuple(self.R.shape[:-2])
+
     @staticmethod
     def from_matrix(M: Tensor) -> "SE3":
         """From (..., 4, 4) homogeneous (or (..., 3, 4)) matrices."""
@@ -171,3 +224,8 @@ class SE3(NamedTuple):
 
     def to(self, dtype) -> "SE3":
         return SE3(self.R.to(dtype), self.t.to(dtype))
+
+
+def se3_distance(T1: SE3, T2: SE3) -> Tensor:
+    """Componentwise max ``|ln(T1) - ln(T2)|``."""
+    return torch.amax(torch.abs(T1.log() - T2.log()), dim=-1)

@@ -79,6 +79,12 @@ def smallest_eigvec_psd(M: Tensor, iterations: int = 8) -> Tensor:
     return torch.where((r1 <= r2)[..., None], x1, x2)
 
 
+def homogeneous_solve(A: Tensor) -> Tensor:
+    """argmin_{|x|=1} |A x| for (..., m, n): smallest right singular
+    vector."""
+    return smallest_eigvec_psd(A.transpose(-1, -2) @ A)
+
+
 def smallest_eigvecs2_psd(M: Tensor, iterations: int = 8
                           ) -> tuple[Tensor, Tensor]:
     """Orthonormal basis (v1, v2) of the 2-dim bottom-eigenvalue subspace
@@ -198,6 +204,15 @@ def svd3x3(M: Tensor) -> tuple[Tensor, Tensor, Tensor]:
                      u3, u3c)
     U = torch.stack([u1, u2, u3], dim=-1)
     return U, s, V.transpose(-1, -2)
+
+
+def project_to_so3_svd(M: Tensor) -> Tensor:
+    """Nearest rotation via a full SVD (the oracle of
+    :func:`project_to_so3`)."""
+    U, _, Vt = torch.linalg.svd(M)
+    D = torch.ones(M.shape[:-2] + (3,), dtype=M.dtype, device=M.device)
+    D[..., 2] = torch.linalg.det(U @ Vt)
+    return (U * D[..., None, :]) @ Vt
 
 
 def polar_orthogonal(M: Tensor, iterations: int = 7) -> Tensor:

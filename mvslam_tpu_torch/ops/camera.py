@@ -22,6 +22,19 @@ class PinholeCamera(NamedTuple):
     P: SE3
 
     @staticmethod
+    def create(K=None, P: SE3 | None = None, dtype=torch.float32,
+               device=None) -> "PinholeCamera":
+        """From a 3x3 intrinsics array (identity when None) and an
+        extrinsic (identity when None)."""
+        if K is None:
+            K = torch.eye(3, dtype=dtype, device=device)
+        else:
+            K = torch.as_tensor(K, dtype=dtype, device=device)
+        if P is None:
+            P = SE3.identity(dtype=dtype, device=device)
+        return PinholeCamera(K, P)
+
+    @staticmethod
     def from_params(fx, fy, shear, px, py, P: SE3 | None = None,
                     dtype=torch.float32, device=None) -> "PinholeCamera":
         K = torch.tensor([[fx, shear, px], [0.0, fy, py], [0.0, 0.0, 1.0]],
@@ -30,9 +43,20 @@ class PinholeCamera(NamedTuple):
             P = SE3.identity(dtype=dtype, device=device)
         return PinholeCamera(K, P)
 
+    def to(self, device) -> "PinholeCamera":
+        """The same camera with its tensors on ``device``."""
+        return PinholeCamera(self.K.to(device),
+                             SE3(self.P.R.to(device), self.P.t.to(device)))
+
     @property
     def K_inv(self) -> Tensor:
-        return torch.linalg.inv(self.K)
+        # the unchecked inverse: ``torch.linalg.inv`` reads its error flag
+        # on the host, a synchronisation per call on the card
+        return torch.linalg.inv_ex(self.K).inverse
+
+    @property
+    def P_inv(self) -> SE3:
+        return self.P.inverse()
 
     def project_points(self, points_world: Tensor) -> Tensor:
         """World points (..., 3) -> pixel coordinates (..., 2)."""

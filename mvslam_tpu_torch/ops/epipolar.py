@@ -126,6 +126,39 @@ def _pick_best(cands: Tensor, err: Tensor, weights: Tensor) -> Tensor:
     return torch.gather(cands, -3, idx)[..., 0, :, :]
 
 
+def _apply_transform2d(T: Tensor, p: Tensor) -> Tensor:
+    """Apply homogeneous 3x3 to 2D points (..., N, 2)."""
+    return p @ T[..., :2, :2].transpose(-1, -2) + T[..., None, :2, 2]
+
+
+def _project_rank2(F: Tensor) -> Tensor:
+    """Zero the smallest singular value (fundamental-matrix structure)."""
+    U, s, Vt = linalg.svd3x3(F)
+    s = torch.cat([s[..., :2], torch.zeros_like(s[..., 2:])], dim=-1)
+    return (U * s[..., None, :]) @ Vt
+
+
+def find_fundamental_matrix(p1: Tensor, p2: Tensor, weights: Tensor,
+                            use_eigh: bool = False) -> Tensor:
+    """Hartley-normalized fundamental matrix (``|F|_F = 1``) from pixel
+    coordinates (..., N, 2), batched: DLT null span on conditioned points,
+    det-cubic candidates, rank-2 projection, denormalization ``T2^T F'
+    T1``, best by weighted Sampson error."""
+    T1 = normalization_transform(p1, weights)
+    T2 = normalization_transform(p2, weights)
+    q1 = _apply_transform2d(T1, p1)
+    q2 = _apply_transform2d(T2, p2)
+    F1, F2 = _solve_epipolar_span(q1, q2, weights, use_eigh=use_eigh)
+    cands = _project_rank2(_span_candidates(F1, F2))
+    cands = T2.transpose(-1, -2)[..., None, :, :] @ cands @ T1[..., None, :, :]
+    norm = torch.linalg.matrix_norm(cands, keepdim=True)
+    cands = cands / torch.clamp(norm, min=torch.finfo(p1.dtype).tiny)
+    h1 = torch.cat([p1, torch.ones_like(p1[..., :1])], dim=-1)
+    h2 = torch.cat([p2, torch.ones_like(p2[..., :1])], dim=-1)
+    err = sampson_error(cands, h1[..., None, :, :], h2[..., None, :, :])
+    return _pick_best(cands, err, weights)
+
+
 def find_essential_matrix(r1: Tensor, r2: Tensor, weights: Tensor,
                           use_eigh: bool = False) -> Tensor:
     """Essential matrix (``|E|_F = 1``) from ideal-camera rays (..., N, 3),
@@ -149,6 +182,11 @@ def _sampson_parts(E: Tensor, r1: Tensor, r2: Tensor):
     return Er1, den
 
 
+def epipolar_residual(E: Tensor, r1: Tensor, r2: Tensor) -> Tensor:
+    """Algebraic epipolar residual ``|r2^T E r1|`` per point, (..., N)."""
+    return torch.abs(torch.sum(r2 * (r1 @ E.transpose(-1, -2)), dim=-1))
+
+
 def sampson_error(E: Tensor, r1: Tensor, r2: Tensor) -> Tensor:
     """First-order geometric (Sampson) error per point, (..., N)."""
     Er1, den = _sampson_parts(E, r1, r2)
@@ -160,6 +198,14 @@ def sampson_weights(E: Tensor, r1: Tensor, r2: Tensor) -> Tensor:
     """Inverse Sampson denominators ``1 / d_i`` per point, (..., N)."""
     _, den = _sampson_parts(E, r1, r2)
     return 1.0 / torch.clamp(den, min=torch.finfo(E.dtype).eps)
+
+
+def essential_from_pose(pose2in1: SE3) -> Tensor:
+    """E (unit Frobenius norm) from the relative camera pose ``pose2in1``."""
+    T21 = pose2in1.inverse()
+    E = skew(T21.t) @ T21.R
+    norm = torch.linalg.matrix_norm(E, keepdim=True)
+    return E / torch.clamp(norm, min=torch.finfo(E.dtype).tiny)
 
 
 def refine_relative_pose_sampson(pose2in1: SE3, r1: Tensor, r2: Tensor,

@@ -63,6 +63,10 @@ class FeatureSet(NamedTuple):
     desc: Tensor
     mask: Tensor
 
+    @property
+    def capacity(self) -> int:
+        return self.xy.shape[-2]
+
 
 class OrbParams(NamedTuple):
     max_features: int = 512

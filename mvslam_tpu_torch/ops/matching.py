@@ -46,13 +46,16 @@ def hamming_matrix(desc1: Tensor, desc2: Tensor) -> Tensor:
 
 def match_features(desc1: Tensor, mask1: Tensor, desc2: Tensor,
                    mask2: Tensor, max_distance: int | None = None,
-                   ratio: float = LOWE_RATIO) -> MatchResult:
+                   ratio: float = LOWE_RATIO,
+                   cross_check: bool = False) -> MatchResult:
     """kNN(2) + Lowe ratio matching of query set 1 against train set 2:
     keep a match when ``d1 < ratio * d2`` and ``d1 <= max_distance``.
     Top-2 by a stable sort: lower train index first on ties, as
     ``jax.lax.top_k``. ``desc2`` (..., K2, 8) and ``mask2`` (..., K2) may
     carry leading dims: one query set against a batch of train sets in one
-    call, every result field (..., K1)."""
+    call, every result field (..., K1). ``cross_check`` (one train set
+    only) also requires query i to be train j's best match; ties keep the
+    lower query index, as ``jnp.argmin``."""
     D = hamming_matrix(desc1, desc2)
     D = torch.where(mask2[..., None, :], D, torch.full_like(D, INVALID_DIST))
     top, idx = torch.sort(D, dim=-1, stable=True)
@@ -61,4 +64,16 @@ def match_features(desc1: Tensor, mask1: Tensor, desc2: Tensor,
     ok = mask1 & (d1 < ratio * d2) & (d1 <= BITS)
     if max_distance is not None:
         ok = ok & (d1 <= max_distance)
+    if cross_check:
+        Dq = torch.where(mask1[:, None], D, torch.full_like(D, INVALID_DIST))
+        back = torch.sort(Dq, dim=0, stable=True).indices[0]
+        ok = ok & (back[best] == torch.arange(D.shape[0], device=D.device))
     return MatchResult(idx=best, dist=d1, mask=ok, second_dist=d2)
+
+
+def gather_matched(match: MatchResult, xy1: Tensor,
+                   xy2: Tensor) -> tuple[Tensor, Tensor, Tensor]:
+    """Aligned coordinate arrays for matched pairs: (p1 (K, 2), p2 (K, 2),
+    mask (K,)); row i pairs query i with its best train keypoint, masked
+    rows are arbitrary."""
+    return xy1, xy2[match.idx], match.mask

@@ -5,15 +5,34 @@ camera-to-world."""
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
 from mvslam_tpu_torch.math import linalg
 from mvslam_tpu_torch.math.lie import SE3, skew
+from mvslam_tpu_torch.ops import ba as ba_mod
 from mvslam_tpu_torch.ops import p3p as p3p_mod
 from mvslam_tpu_torch.ops import ransac as ransac_mod
 
 Tensor = torch.Tensor
+
+PNP_POINT_MIN = 7
+PNP_REPROJ_THRESHOLD = 0.05
+
+
+class PnpParams(NamedTuple):
+    num_hypotheses: int = 256
+    threshold: float = PNP_REPROJ_THRESHOLD   # ideal-plane reprojection
+    min_inliers: int = PNP_POINT_MIN
+    refit: bool = True
+
+
+class PnpResult(NamedTuple):
+    pose: SE3                 # camera-to-world
+    inlier_mask: Tensor       # (N,)
+    num_inliers: Tensor
+    success: Tensor
 
 
 def _pose_dlt(X: Tensor, r: Tensor, weights: Tensor) -> tuple[Tensor, Tensor]:
@@ -183,3 +202,40 @@ def pnp_ransac_core(X: Tensor, r: Tensor, mask: Tensor, num_hypotheses: int,
     pose = refine_pose_gn(pose, X, r, best_inl.to(dtype))
     best_inl = (reprojection_error_sq(pose, X, r) < thr_sq) & mask
     return pose, best_inl
+
+
+def pnp_solve(X: Tensor, r: Tensor, mask: Tensor,
+              params: PnpParams = PnpParams(),
+              generator: torch.Generator | None = None,
+              uniforms: Tensor | None = None) -> PnpResult:
+    """Camera pose from 3D-2D matches by batched P3P-RANSAC. X (N, 3)
+    world points, r (N, 3) homogeneous ideal-plane observations, mask (N,)
+    valid correspondences; the draws come from ``uniforms``
+    (num_hypotheses, N) or ``generator`` (the JAX package's ``key``)."""
+    pose, best_inl = pnp_ransac_core(
+        X, r, mask, params.num_hypotheses,
+        params.threshold * params.threshold, params.refit,
+        generator=generator, uniforms=uniforms)
+    num = torch.sum(best_inl).to(torch.int32)
+    return PnpResult(pose=pose, inlier_mask=best_inl, num_inliers=num,
+                     success=num >= params.min_inliers)
+
+
+def pnp_refine(pose0: SE3, pose0_info: Tensor, X: Tensor, X_info: Tensor,
+               r: Tensor, obs_weight: Tensor, mask: Tensor,
+               ba_params: ba_mod.BAParams = ba_mod.BAParams()
+               ) -> tuple[SE3, Tensor, Tensor]:
+    """Motion-(mostly-)only BA: one frame regulated by its own prior
+    (``pose0_info``) + N points carrying priors from their estimates
+    (``X_info`` = inverse covariances); points are optimized but not
+    returned. Returns (refined pose, pose covariance (6, 6), final
+    error)."""
+    poses0 = SE3(pose0.R[None], pose0.t[None])
+    prob = ba_mod.BAProblem.create(
+        poses0=poses0, points0=X, obs=r[None, :, :2], obs_mask=mask[None],
+        obs_weight=obs_weight[None], pose_prior=poses0,
+        pose_prior_info=pose0_info[None], point_prior=X,
+        point_prior_info=X_info)
+    result = ba_mod.ba_solve(prob, ba_params)
+    return (SE3(result.poses.R[0], result.poses.t[0]),
+            result.pose_covariance[0], result.error)

@@ -98,3 +98,39 @@ def essential_ransac(r1: Tensor, r2: Tensor, mask: Tensor,
         num_inliers=torch.sum(best_inl).to(torch.int32),
         residuals=epipolar.sampson_error(E, r1, r2),
     )
+
+
+def fundamental_ransac(p1: Tensor, p2: Tensor, mask: Tensor,
+                       num_hypotheses: int = 256, max_error: float = 5.0,
+                       refit: bool = True,
+                       generator: torch.Generator | None = None,
+                       uniforms: Tensor | None = None) -> RansacResult:
+    """Pixel-space fundamental-matrix RANSAC: 8-point minimal samples,
+    inlier test on the algebraic residual ``|p2^T F p1| < max_error``
+    (linear in the residual, not squared), best model by (inlier count,
+    then total residual); ``refit`` adds one eigh refit on the consensus
+    set, kept if it loses no inliers. p1, p2: (N, 2) pixel coordinates."""
+    h1 = torch.cat([p1, torch.ones_like(p1[..., :1])], dim=-1)
+    h2 = torch.cat([p2, torch.ones_like(p2[..., :1])], dim=-1)
+    idx = sample_minimal_sets(mask, num_hypotheses, 8, generator, uniforms)
+    w = torch.ones(idx.shape, dtype=p1.dtype, device=p1.device)
+    Fs = epipolar.find_fundamental_matrix(p1[idx], p2[idx], w)
+    errors = epipolar.epipolar_residual(Fs, h1[None], h2[None])
+    best, inl, _ = _select_best(errors, mask, max_error)
+    F = take_best(Fs, best)
+    best_inl = take_best(inl, best)
+
+    if refit:
+        F_fit = epipolar.find_fundamental_matrix(
+            p1, p2, best_inl.to(p1.dtype), use_eigh=True)
+        err_fit = epipolar.epipolar_residual(F_fit, h1, h2)
+        inl_fit = (err_fit < max_error) & mask
+        better = torch.sum(inl_fit) >= torch.sum(best_inl)
+        F = torch.where(better, F_fit, F)
+        best_inl = torch.where(better, inl_fit, best_inl)
+
+    return RansacResult(
+        model=F, inlier_mask=best_inl,
+        num_inliers=torch.sum(best_inl).to(torch.int32),
+        residuals=epipolar.epipolar_residual(F, h1, h2),
+    )

@@ -9,13 +9,14 @@ import torch
 
 from mvslam_tpu_torch.math.lie import SE3
 from mvslam_tpu_torch.ops import ba as ba_mod
-from mvslam_tpu_torch.ops import epipolar, triangulate
+from mvslam_tpu_torch.ops import epipolar, ransac, triangulate
 from mvslam_tpu_torch.ops.ransac import take_best
 
 Tensor = torch.Tensor
 
 #: reference constants (vision/sfm-solve.cpp:18-23, sfm-refine.cpp:11-18)
 MAX_ERROR_SQ = 5e-2
+VF_MATCH_INLIER_MIN = 8
 ANCHOR_STDDEV = 1e-5
 REGULATOR_STDDEV = 1e-2
 
@@ -37,6 +38,65 @@ def recover_pose_and_points(E: Tensor, r1: Tensor, r2: Tensor,
     best = torch.argmax(torch.sum(good, dim=-1))
     pose2in1 = SE3(take_best(Rs, best), take_best(ts, best)).inverse()
     return pose2in1, take_best(X, best), take_best(good, best)
+
+
+class SfmParams(NamedTuple):
+    """Static solve configuration (shapes and budgets are Python ints)."""
+
+    num_hypotheses: int = 256
+    threshold_sq: float = MAX_ERROR_SQ   # squared ideal-plane units
+    min_inliers: int = VF_MATCH_INLIER_MIN
+    min_depth: float = 0.0               # cheirality lower bound
+    refit: bool = True
+    polish: bool = True                  # Sampson GN on the recovered pose
+    polish_iterations: int = 6
+
+
+class SfmResult(NamedTuple):
+    """Everything ``sfm_solve`` recovers. ``pose2in1``: frame-2 camera pose
+    in frame 1, translation unit-norm (scale is unobservable). ``points``:
+    (N, 3) in frame-1 coordinates, valid where ``point_mask``.
+    ``success``: enough inliers survived."""
+
+    pose2in1: SE3
+    points: Tensor
+    point_mask: Tensor
+    inlier_mask: Tensor
+    num_inliers: Tensor
+    num_points: Tensor
+    E: Tensor
+    success: Tensor
+
+
+def sfm_solve(r1: Tensor, r2: Tensor, mask: Tensor,
+              params: SfmParams = SfmParams(),
+              generator: torch.Generator | None = None,
+              uniforms: Tensor | None = None) -> SfmResult:
+    """Two-view bootstrap from matched ideal-camera rays (N, 3): essential
+    matrix by RANSAC, pose and points by cheirality vote, then
+    (``polish``) a Sampson polish of the pose and a re-triangulation
+    against it. The RANSAC draws come from ``uniforms``
+    (num_hypotheses, N) or ``generator`` (the JAX package's ``key``)."""
+    rr = ransac.essential_ransac(
+        r1, r2, mask, num_hypotheses=params.num_hypotheses,
+        threshold_sq=params.threshold_sq, refit=params.refit,
+        generator=generator, uniforms=uniforms)
+    pose2in1, points, point_mask = recover_pose_and_points(
+        rr.model, r1, r2, rr.inlier_mask, params.min_depth)
+    E = rr.model
+    if params.polish:
+        pose2in1 = epipolar.refine_relative_pose_sampson(
+            pose2in1, r1, r2, rr.inlier_mask.to(r1.dtype),
+            iterations=params.polish_iterations)
+        E = epipolar.essential_from_pose(pose2in1)
+        points, point_mask = sfm_triangulate(r1, r2, rr.inlier_mask,
+                                             pose2in1, params.min_depth)
+    return SfmResult(
+        pose2in1=pose2in1, points=points, point_mask=point_mask,
+        inlier_mask=rr.inlier_mask, num_inliers=rr.num_inliers,
+        num_points=torch.sum(point_mask).to(torch.int32), E=E,
+        success=rr.num_inliers >= params.min_inliers,
+    )
 
 
 class SfmRefineResult(NamedTuple):

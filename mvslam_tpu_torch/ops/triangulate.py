@@ -6,8 +6,14 @@ from __future__ import annotations
 import torch
 
 from mvslam_tpu_torch.math import linalg
+from mvslam_tpu_torch.math.lie import SE3
 
 Tensor = torch.Tensor
+
+
+def projection_matrix(pose: SE3) -> Tensor:
+    """World->camera SE3 -> ideal-camera 3x4 projection ``[R | t]``."""
+    return pose.matrix3x4()
 
 
 def triangulate_dlt(P1: Tensor, P2: Tensor, r1: Tensor, r2: Tensor) -> Tensor:
@@ -39,3 +45,13 @@ def cheirality_mask(P1: Tensor, P2: Tensor, X: Tensor,
                     min_depth: float = 0.0) -> Tensor:
     """Points in front of both cameras."""
     return (point_depth(P1, X) > min_depth) & (point_depth(P2, X) > min_depth)
+
+
+def reprojection_error_sq(P: Tensor, X: Tensor, r: Tensor) -> Tensor:
+    """Squared ideal-plane reprojection error per point under a projection
+    ``P`` (..., 3, 4): (..., N)."""
+    z = point_depth(P, X)
+    xy = X @ P[..., :2, :3].transpose(-1, -2) + P[..., None, :2, 3]
+    safe_z = torch.where(torch.abs(z) < torch.finfo(X.dtype).tiny ** 0.5,
+                         torch.ones_like(z), z)
+    return torch.sum((xy / safe_z[..., None] - r[..., :2]) ** 2, dim=-1)

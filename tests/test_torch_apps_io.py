@@ -32,6 +32,17 @@ from mvslam_tpu_torch.viz import export as texport
 H, W, FOCAL = 240, 320, 280.0
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The odometer on the CPU is thousands of tiny ops per frame: with the
+    suite's workers side by side, torch's intra-op pool only makes them
+    fight for the cores (measured: this file 4-40x slower)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _bytes(path):
     with open(path, "rb") as f:
         return f.read()
@@ -266,12 +277,81 @@ def test_app_reports_frames_unless_quiet(dataset, tmp_path, capsys):
 @pytest.mark.parametrize("extra,needle", [
     (["--pose-graph", "--checkpoint", "ck.npz"], "--checkpoint and --resume"),
     (["--pose-graph", "--resume", "ck.npz"], "--checkpoint and --resume"),
-    ([], "ROADMAP S12"),
 ])
 def test_app_refuses_what_it_cannot_do(dataset, capsys, extra, needle):
     rc = app.main([str(dataset), "--device", "cpu", *extra])
     assert rc == ApplicationErrorCode.INVALID_ARGS
     assert needle in capsys.readouterr().err
+
+
+def test_app_default_mode_writes_its_files(dataset, tmp_path, capsys):
+    """``FrameManager`` -> ``VisualOdometer`` over the ten frames: frame 1
+    bootstraps, frame 2 fails the error gate, frame 3 bootstraps again, the
+    rest are tracked."""
+    out = tmp_path / "out"
+    rc = app.main([str(dataset), "--device", "cpu", "--quiet",
+                   "--out-dir", str(out)])
+    assert rc == ApplicationErrorCode.NONE
+    captured = capsys.readouterr()
+    assert captured.err == ""
+    assert "frame_total = 10, frame_tracked = 8, map_points = " in captured.out
+    assert ", fps = " in captured.out and "wrote " in captured.out
+    traj = texport.load_trajectory_tum(str(out / "trajectory.tum"))
+    assert [r[1] for r in traj] == pytest.approx(
+        [0.1 * (k + 1) for k in (1, 3, 4, 5, 6, 7, 8, 9)])
+    # the unit is the second bootstrap's baseline: +x, one per frame
+    assert float(traj[-1][2].t[0]) == pytest.approx(7.0, abs=0.7)
+    header = (out / "scene.ply").read_text().splitlines()
+    assert header[0] == "ply" and int(header[2].split()[-1]) > 8 * 24
+    assert not (out / "trajectory_optimized.tum").exists()
+    tconfig.ParameterManager.global_instance().clear()
+
+
+def test_app_default_mode_reports_frames_unless_quiet(dataset, tmp_path,
+                                                      capsys):
+    rc = app.main([str(dataset), "--device", "cpu", "--max-frames", "3",
+                   "--out-dir", str(tmp_path)])
+    assert rc == ApplicationErrorCode.NONE
+    err = capsys.readouterr().err.splitlines()
+    assert len(err) == 3
+    assert err[0] == ("frame 1/3 [000.png]: lost (need frames) inliers=0 "
+                      "t=None")
+    assert err[1].startswith("frame 2/3 [001.png]: tracked (bootstrap) "
+                             "inliers=")
+    assert err[2].startswith("frame 3/3 [002.png]: lost (error gate)")
+    tconfig.ParameterManager.global_instance().clear()
+
+
+def test_app_checkpoint_then_resume_continues(dataset, tmp_path, capsys):
+    """Six frames saved with ``--checkpoint``, the other four replayed with
+    ``--resume``: the trajectory goes on where it stopped, with the poses
+    of the run that never stopped."""
+    whole, head, tail = (tmp_path / n for n in ("whole", "head", "tail"))
+    ck = str(tmp_path / "ck.npz")
+    assert app.main([str(dataset), "--device", "cpu", "--quiet",
+                     "--out-dir", str(whole)]) == ApplicationErrorCode.NONE
+    assert app.main([str(dataset), "--device", "cpu", "--quiet",
+                     "--max-frames", "6", "--checkpoint", ck,
+                     "--out-dir", str(head)]) == ApplicationErrorCode.NONE
+    out = capsys.readouterr().out
+    assert "frame_total = 6, frame_tracked = 4" in out
+    assert f"wrote {ck}" in out and os.path.getsize(ck) > 0
+    rest = tmp_path / "rest"
+    rest.mkdir()
+    paths = timage.read_manifest(str(dataset / "image.txt"))
+    timage.write_manifest(str(rest / "image.txt"), paths[6:])
+    (rest / "camera.config").write_text(
+        (dataset / "camera.config").read_text())
+    assert app.main([str(rest), "--device", "cpu", "--quiet", "--resume", ck,
+                     "--out-dir", str(tail)]) == ApplicationErrorCode.NONE
+    assert "frame_total = 10, frame_tracked = 8" in capsys.readouterr().out
+    want = texport.load_trajectory_tum(str(whole / "trajectory.tum"))
+    got = texport.load_trajectory_tum(str(tail / "trajectory.tum"))
+    assert len(got) == len(want) == 8
+    assert len(texport.load_trajectory_tum(str(head / "trajectory.tum"))) == 4
+    for (_, _, p), (_, _, q) in zip(got, want):
+        assert torch.equal(p.t, q.t) and torch.equal(p.R, q.R)
+    tconfig.ParameterManager.global_instance().clear()
 
 
 def test_app_error_codes_for_bad_datasets(tmp_path, capsys):

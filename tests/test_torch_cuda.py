@@ -3,7 +3,10 @@ plain version at the tracker's pyramid shapes, the pyramid call's views
 against per-level calls, the wrappers' checks and launch count, and the
 tracker's steps on the device. Its SLAM path: the back-end, the sparse BA
 and the float64 graph solve, each against the same code on the CPU fed the
-same inputs. Every test needs a CUDA card
+same inputs. Its host-orchestrated front end (``FrameManager`` ->
+``VisualOdometer``): the devices it sits on, the kernel launched once per
+frame, the card against the CPU under the same draws, the checkpoint round
+trip, and the writes through repeating indices. Every test needs a CUDA card
 and skips without one; this file imports no JAX, so on the card it runs as
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
@@ -16,6 +19,11 @@ import torch
 from mvslam_tpu_torch import convert
 from mvslam_tpu_torch.backend import pose_graph as pg
 from mvslam_tpu_torch.backend.slam import BackendParams, PoseGraphBackend
+from mvslam_tpu_torch.frontend import FrameManager, VisualOdometer
+from mvslam_tpu_torch.io.checkpoint import load_checkpoint, save_checkpoint
+from mvslam_tpu_torch.math import kalman
+from mvslam_tpu_torch.ops.camera import PinholeCamera
+from mvslam_tpu_torch.utils.indexing import set_rows
 from mvslam_tpu_torch.frontend.vo_jit import (
     VoJitParams, make_vo_step, vo_init_state,
 )
@@ -262,3 +270,143 @@ def test_float64_graph_solve_on_the_card(dev):
     est = SE3(got.poses.R[src], got.poses.t[src]).inverse().compose(
         SE3(got.poses.R[dst], got.poses.t[dst]))
     assert float((est.t.cpu() - rel.t).abs().max()) <= 1e-6
+
+
+# -- the host-orchestrated front end ---------------------------------------
+
+
+def _scene(n=6, h=240, w=320, focal=280.0):
+    # the renderer sizes its textures by the whole path: ten frames, cut
+    i = np.arange(10)
+    ts = np.stack([i * 0.12, 0.02 * np.sin(i * 0.25), np.zeros(10)], 1)
+    frames = render_planes_sequence(ts, h=h, w=w, focal=focal,
+                                    bg_slope=0.18)[:n]
+    return frames, PinholeCamera.from_params(focal, focal, 0.0, (w - 1) / 2,
+                                             (h - 1) / 2)
+
+
+def _uniforms(rng, dev):
+    return torch.tensor(rng.uniform(size=(256, P.max_features)),
+                        dtype=torch.float32, device=dev)
+
+
+def test_front_end_sits_on_the_card_by_default(dev):
+    frames, cam = _scene(1)
+    fm, vo = FrameManager(camera=cam), VisualOdometer()
+    assert fm.device.type == vo.device.type == "cuda"
+    assert fm.camera.K.is_cuda and vo._map.positions.is_cuda
+    before = features_cuda.fast_nms_harris_rank_pyramid.launches
+    frame = fm.add_frame(0.1, frames[0])
+    assert features_cuda.fast_nms_harris_rank_pyramid.launches == before + 1
+    for t in (frame.rays, frame.sigma, frame.image, frame.image_smooth,
+              frame.features.desc, frame.features.mask):
+        assert t.is_cuda
+    assert fm._fps._state.x.device.type == "cpu"     # by design
+    assert fm.get_fps() == 0.0
+    # the same keypoints as the CPU's plain corner front
+    want = FrameManager(camera=cam, device="cpu").add_frame(0.1, frames[0])
+    assert torch.equal(frame.features.mask.cpu(), want.features.mask)
+    m = want.features.mask
+    assert int(m.sum()) > 300
+    got_xy = {tuple(p) for p in frame.features.xy.cpu()[m].tolist()}
+    want_xy = {tuple(p) for p in want.features.xy[m].tolist()}
+    assert len(got_xy ^ want_xy) <= 6      # resize rounding moves a rank tie
+
+
+def test_host_vo_on_the_card_matches_cpu(dev):
+    """Six frames through ``FrameManager`` -> ``VisualOdometer`` on the
+    card and on the CPU under the same uniforms: equal outcomes, inlier
+    counts within 3, one kernel launch per frame, poses within 0.1 of the
+    distance travelled (unit: the baseline) and 5e-3. This odometer's
+    tracked poses are loose across the path (+-0.3 baselines in both
+    packages) and amplify the devices' rounding accordingly: measured 0.11
+    at 2 baselines out, where its bootstrap poses agree to 1e-2."""
+    frames, cam = _scene(6)
+    sides = [(FrameManager(camera=cam), VisualOdometer()),
+             (FrameManager(camera=cam, device="cpu"),
+              VisualOdometer(device="cpu"))]
+    rng = np.random.default_rng(5)
+    before = features_cuda.fast_nms_harris_rank_pyramid.launches
+    tracked = 0
+    for k, img in enumerate(frames):
+        u = _uniforms(rng, "cpu")
+        a, b = (vo.add_frame(fm.add_frame(0.1 * (k + 1), img),
+                             uniforms=u.to(vo.device)) for fm, vo in sides)
+        assert (a.success, a.reason) == (b.success, b.reason), k
+        assert abs(a.num_inliers - b.num_inliers) <= 3, k
+        if a.success:
+            tracked += 1
+            assert a.pose.t.is_cuda
+            reach = max(1.0, float(b.pose.t.norm()))
+            assert float((a.pose.t.cpu() - b.pose.t).abs().max()) <= (
+                0.1 * reach)
+            assert float((a.pose.R.cpu() - b.pose.R).abs().max()) <= 5e-3
+    assert tracked >= 3
+    assert features_cuda.fast_nms_harris_rank_pyramid.launches == before + 6
+    card = sides[0][1]
+    assert card._last_obs_rays.is_cuda
+    assert card._last_obs_rays.dtype == torch.float64
+    assert abs(card.num_tracked_points - sides[1][1].num_tracked_points) <= 10
+
+
+def test_checkpoint_round_trip_on_the_card(dev, tmp_path):
+    """Saved on the card after a bootstrap, loaded on the card (bit-equal
+    next frame) and on the CPU (the same outcome)."""
+    frames, cam = _scene(3)
+    fm, vo = FrameManager(camera=cam), VisualOdometer()
+    rng = np.random.default_rng(6)
+    for k in range(2):
+        vo.add_frame(fm.add_frame(0.1 * (k + 1), frames[k]),
+                     uniforms=_uniforms(rng, dev))
+    assert vo.state.name == "TRACKING"
+    path = str(tmp_path / "vo.npz")
+    save_checkpoint(vo, path)
+    back = load_checkpoint(path, VisualOdometer())
+    on_cpu = load_checkpoint(path, VisualOdometer(device="cpu"))
+    assert back._map.positions.is_cuda and not on_cpu._map.positions.is_cuda
+    assert torch.equal(back._map.positions, vo._map.positions)
+    assert torch.equal(back._map.desc, vo._map.desc)
+    frame = fm.add_frame(0.3, frames[2])
+    u = _uniforms(rng, dev)
+    a, b = vo.add_frame(frame, uniforms=u), back.add_frame(frame, uniforms=u)
+    assert a[2:] == b[2:] and a.success == b.success
+    if a.success:
+        assert torch.equal(a.pose.t, b.pose.t)
+    c = on_cpu.add_frame(
+        FrameManager(camera=cam, device="cpu").add_frame(0.3, frames[2]),
+        uniforms=u.cpu())
+    assert (c.success, c.reason) == (a.success, a.reason)
+
+
+def test_set_rows_with_repeats_is_deterministic_on_the_card(dev):
+    """Repeated indices on the card: numpy's last write, every time."""
+    rng = np.random.default_rng(8)
+    n, k = 64, 4096
+    idx = rng.integers(0, n, k)
+    vals = rng.normal(size=(k, 3)).astype(np.float32)
+    want = np.zeros((n, 3), np.float32)
+    want[idx] = vals
+    dst = torch.zeros((n, 3), device=dev)
+    for _ in range(5):
+        got = set_rows(dst, torch.tensor(idx, device=dev),
+                       torch.tensor(vals, device=dev))
+        np.testing.assert_array_equal(got.cpu().numpy(), want)
+    filled = set_rows(dst, torch.tensor(idx[:5], device=dev), 2.0)
+    assert float(filled.sum()) == 2.0 * 3 * len(set(idx[:5].tolist()))
+
+
+def test_kalman_follows_its_inputs_device(dev):
+    x = torch.zeros(2, device=dev, dtype=torch.float64)
+    eye = torch.eye(2, device=dev, dtype=torch.float64)
+    state, ok = kalman.kf_process_update(kalman.kf_init(x, eye), eye,
+                                         0.1 * eye)
+    state, ok2 = kalman.kf_measurement_update(
+        state, eye[:1], torch.ones(1, device=dev, dtype=torch.float64),
+        eye[:1, :1])
+    assert state.x.is_cuda and state.P.is_cuda and bool(ok) and bool(ok2)
+    cpu = kalman.kf_measurement_update(
+        kalman.kf_process_update(kalman.kf_init(x.cpu(), eye.cpu()),
+                                 eye.cpu(), 0.1 * eye.cpu())[0],
+        eye[:1].cpu(), torch.ones(1, dtype=torch.float64),
+        eye[:1, :1].cpu())[0]
+    assert float((state.x.cpu() - cpu.x).abs().max()) <= 1e-12

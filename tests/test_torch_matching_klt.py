@@ -48,16 +48,18 @@ def test_hamming_matrix_exact():
     np.testing.assert_array_equal(got, want)
 
 
-@pytest.mark.parametrize("max_distance", [None, 64])
-def test_match_features_exact(max_distance):
+@pytest.mark.parametrize("max_distance,cross_check", [
+    (None, False), (64, False), (64, True)])
+def test_match_features_exact(max_distance, cross_check):
     d1, m1, d2, m2 = _descriptor_sets(seed=1)
     want = jm.match_features(jnp.asarray(d1), jnp.asarray(m1),
                              jnp.asarray(d2), jnp.asarray(m2),
-                             max_distance=max_distance)
+                             max_distance=max_distance,
+                             cross_check=cross_check)
     got = tm.match_features(torch.from_numpy(d1.view(np.int32)),
                             torch.from_numpy(m1), torch.from_numpy(
                                 d2.view(np.int32)), torch.from_numpy(m2),
-                            max_distance)
+                            max_distance, cross_check=cross_check)
     mask = np.asarray(want.mask)
     assert 50 < mask.sum() < len(mask)
     np.testing.assert_array_equal(got.mask.numpy(), mask)

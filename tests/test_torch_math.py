@@ -193,3 +193,81 @@ def test_solve_psd_non_pd_gives_nan_like_jax(dt):
     b = np.ones((1, 6), dt.np)
     assert np.isnan(tla.solve_psd(dt.t(A), dt.t(b)).numpy()).all()
     assert np.isnan(np.asarray(jla.solve_psd(dt.j(A), dt.j(b)))).all()
+
+
+def test_rpy_and_rectify(dt):
+    rng = np.random.default_rng(12)
+    r, p, y = (dt.draw(rng, 20, scale=0.6) for _ in range(3))
+    want = jl.so3_from_rpy(dt.j(r), dt.j(p), dt.j(y))
+    got = tl.so3_from_rpy(dt.t(r), dt.t(p), dt.t(y))
+    dt.close(got.numpy(), want, atol=1e-6)
+    for g, w in zip(tl.so3_rpy(got), jl.so3_rpy(want)):
+        dt.close(g.numpy(), w, atol=1e-6)
+    dt.close(tl.so3_rpy(got)[1].numpy(), p, atol=1e-6)   # the round trip
+    # python floats with an explicit dtype, as the JAX package's tests call it
+    one = tl.so3_from_rpy(0.1, -0.2, 0.3, dtype=dt.torch)
+    dt.close(one.numpy(), jl.so3_from_rpy(0.1, -0.2, 0.3, dtype=dt.jnp),
+             atol=1e-6)
+    M = np.asarray(want, dt.np) + dt.draw(rng, 20, 3, 3, scale=0.01)
+    dt.close(tl.so3_rectify(dt.t(M)).numpy(), jl.so3_rectify(dt.j(M)),
+             atol=1e-6)
+    R = tl.so3_rectify(dt.t(M))
+    dt.close((R @ R.transpose(-1, -2)).numpy(),
+             np.broadcast_to(np.eye(3, dtype=dt.np), (20, 3, 3)), atol=1e-6)
+    assert tl.so3_adjoint(R) is R
+
+
+def test_se3_adjoint(dt):
+    rng = np.random.default_rng(15)
+    xi, tw = dt.draw(rng, 8, 6, scale=0.5), dt.draw(rng, 8, 6, scale=0.1)
+    T, J = tl.SE3.exp(dt.t(xi)), jl.SE3.exp(dt.j(xi))
+    dt.close(T.adjoint().numpy(), J.adjoint(), atol=1e-6)
+    assert T.batch_shape == J.batch_shape == (8,)
+    # T exp(tw) T^-1 = exp(Ad tw)
+    lhs = T.compose(tl.SE3.exp(dt.t(tw))).compose(T.inverse())
+    rhs = tl.SE3.exp((T.adjoint() @ dt.t(tw)[..., None])[..., 0])
+    dt.close(lhs.t.numpy(), rhs.t.numpy(), atol=1e-5)
+    dt.close(lhs.R.numpy(), rhs.R.numpy(), atol=1e-5)
+
+
+def test_se3_distance(dt):
+    rng = np.random.default_rng(13)
+    a, b = dt.draw(rng, 16, 6, scale=0.5), dt.draw(rng, 16, 6, scale=0.5)
+    got = tl.se3_distance(tl.SE3.exp(dt.t(a)), tl.SE3.exp(dt.t(b)))
+    want = jl.se3_distance(jl.SE3.exp(dt.j(a)), jl.SE3.exp(dt.j(b)))
+    dt.close(got.numpy(), want, atol=1e-4)
+    dt.close(got.numpy(), np.abs(a - b).max(-1), atol=1e-4)
+
+
+def test_homogeneous_solve_and_so3_svd(dt):
+    rng = np.random.default_rng(14)
+    A = dt.draw(rng, 8, 12, 5)
+    got = tla.homogeneous_solve(dt.t(A)).numpy()
+    want = np.asarray(jla.homogeneous_solve(dt.j(A)))
+    sign = np.sign(np.sum(got * want, -1, keepdims=True))
+    # power iterations on a 5x5 spectrum: the float32 bound of
+    # test_smallest_eigvec_psd
+    dt.close(sign * got, want, atol=2e-3, atol64=1e-7)
+    M = dt.draw(rng, 8, 3, 3)
+    dt.close(tla.project_to_so3_svd(dt.t(M)).numpy(),
+             jla.project_to_so3_svd(dt.j(M)), atol=1e-5)
+    # the oracle of the iterative projection
+    dt.close(tla.project_to_so3_svd(dt.t(M)).numpy(),
+             tla.project_to_so3(dt.t(M)).numpy(), atol=1e-4, atol64=1e-9)
+
+
+def test_config_constants_and_shapes():
+    from mvslam_tpu import config as jc
+    from mvslam_tpu_torch import config as tc
+
+    for tname, jname in ((torch.float32, jnp.float32),
+                         (torch.float64, jnp.float64)):
+        for fn in ("epsilon", "tolerance", "taylor_threshold", "infinity"):
+            assert getattr(tc, fn)(tname) == getattr(jc, fn)(jname), fn
+    import dataclasses
+
+    assert dataclasses.asdict(tc.StaticShapes()) == dataclasses.asdict(
+        jc.StaticShapes())
+    assert tc.DEFAULT_SHAPES == tc.StaticShapes()
+    with pytest.raises(dataclasses.FrozenInstanceError):
+        tc.DEFAULT_SHAPES.max_features = 1

@@ -47,7 +47,12 @@ def test_every_new_module_is_found():
     for name in ("ops.ba_sparse", "parallel.synthetic", "backend.pose_graph",
                  "backend.graph", "backend.sim3_graph", "backend.slam",
                  "apps.visual_odometer", "io.image", "viz.export",
-                 "utils.errors", "convert", "config"):
+                 "utils.errors", "convert", "config",
+                 "math.kalman", "math.signal", "math.state_estimate",
+                 "frontend.data_types", "frontend.camera_manager",
+                 "frontend.frame_manager", "frontend.image_pair",
+                 "frontend.visual_odometer", "io.checkpoint",
+                 "utils.indexing"):
         assert f"mvslam_tpu_torch.{name}" in mods, name
     assert len(port_sources()) == len(mods) + len(ROOT_SCRIPTS)
 
@@ -140,13 +145,19 @@ def _entry_points():
     from mvslam_tpu_torch import convert
     from mvslam_tpu_torch.backend.graph import Graph
     from mvslam_tpu_torch.backend.slam import PoseGraphBackend
+    from mvslam_tpu_torch.frontend import (
+        CameraManager, FrameManager, VisualOdometer,
+    )
     from mvslam_tpu_torch.parallel import synthetic
 
     return [vo_init_state, state_from_numpy, convert.step_out_from_numpy,
             convert.sparse_ba_problem_from_numpy,
             convert.pose_graph_data_from_numpy,
             convert.sim3_graph_data_from_numpy, convert.backend_from_numpy,
+            convert.feature_set_from_numpy, convert.frame_from_numpy,
             PoseGraphBackend.__init__, Graph.__init__,
+            VisualOdometer.__init__, FrameManager.__init__,
+            CameraManager.__init__,
             synthetic.make_sequence_ba_problem,
             synthetic.make_window_ba_problem]
 
@@ -159,13 +170,33 @@ def test_entry_points_default_to_the_card(entry):
     assert inspect.signature(entry).parameters["device"].default == "cuda"
 
 
-def test_app_defaults_to_the_card(monkeypatch, tmp_path):
+def test_front_end_builds_on_the_device_it_is_given():
+    """``VisualOdometer()`` and ``FrameManager()`` sit on ``cuda`` unless
+    told otherwise; told ``cpu``, every tensor they hold is there, but for
+    the FPS filter, which is on the CPU by design."""
+    from mvslam_tpu_torch.frontend import FrameManager, VisualOdometer
+
+    for cls in (VisualOdometer, FrameManager):
+        assert inspect.signature(cls).parameters["device"].default == "cuda"
+    vo = VisualOdometer(device="cpu")
+    assert vo.device.type == "cpu"
+    for name in ("positions", "desc", "templates", "valid", "last_seen"):
+        assert getattr(vo._map, name).device.type == "cpu"
+    assert vo._map.desc.dtype == torch.int32
+    assert vo._map.last_seen.dtype == torch.int64
+    fm = FrameManager(device="cpu")
+    assert fm.camera.K.device.type == "cpu"
+
+
+@pytest.mark.parametrize("flags,runner", [
+    (["--pose-graph"], "_run_pose_graph"), ([], "_run_visual_odometer")])
+def test_app_defaults_to_the_card(monkeypatch, tmp_path, flags, runner):
     from mvslam_tpu_torch.apps import visual_odometer as app
 
     seen = []
-    monkeypatch.setattr(app, "_run_pose_graph",
+    monkeypatch.setattr(app, runner,
                         lambda args, cam, paths: seen.append(args.device) or 0)
     (tmp_path / "camera.config").write_text("1 1 0 0 0\n0 0 0 0 0 0\n")
     (tmp_path / "image.txt").write_text("a.png\n")
-    assert app.main([str(tmp_path), "--pose-graph"]) == 0
+    assert app.main([str(tmp_path), *flags]) == 0
     assert seen == ["cuda"]
