@@ -14,17 +14,25 @@ end (``host vo``): the 110-frame scene through the app's default mode
 (``FrameManager`` -> ``VisualOdometer``, files written), timed per frame
 and per state with its synchronising host reads counted by source line, a
 checkpoint saved at frame 60 and resumed to bit-equal poses, and its first
-frames on the card against the CPU under the same draws.
+frames on the card against the CPU under the same draws. Then the
+remaining entry points: which image codecs the machine has, the
+``reconstruct_scene`` app's two-view solve (against the scene's truth and
+against the CPU under the same draws), a 20-view ``calibrate_camera``
+solve with radial distortion and its undistorted preview (against truth
+and the CPU), the native JPEG prefetch loader feeding the app's default
+mode, and the threaded 2D viewer and feature demos on the card's features.
 
     python3 chip_smoke.py
 
 Needs one CUDA card, ``nvcc`` and ``nvidia-smi``; imports neither JAX nor
-the JAX package. Each phase prints its result; any failure raises and the
+the JAX package. PIL and libjpeg's headers are optional: a phase that needs
+one says on its own line what it could not check without it. Each phase prints its result; any failure raises and the
 script exits non-zero. The last line is one JSON object naming the device.
 """
 
 from __future__ import annotations
 
+import argparse
 import collections
 import json
 import os
@@ -37,22 +45,27 @@ import numpy as np
 import torch
 
 from mvslam_tpu_torch import convert
+from mvslam_tpu_torch.apps import calibrate_camera, demos, reconstruct_scene
 from mvslam_tpu_torch.apps.visual_odometer import (
-    run_pose_graph, run_visual_odometer,
+    _run_visual_odometer, run_pose_graph, run_visual_odometer,
 )
 from mvslam_tpu_torch.backend.slam import BackendParams, PoseGraphBackend
-from mvslam_tpu_torch.frontend import FrameManager, VisualOdometer, VoState
+from mvslam_tpu_torch.frontend import (
+    FrameManager, ImagePairParams, VisualOdometer, VoState,
+)
 from mvslam_tpu_torch.frontend.vo_jit import (
     VoJitParams, make_vo_replay, make_vo_step, vo_init_state,
 )
+from mvslam_tpu_torch.io import load_image_grayscale, native_loader
 from mvslam_tpu_torch.io.checkpoint import load_checkpoint, save_checkpoint
+from mvslam_tpu_torch.math.lie import so3_exp, so3_log
 from mvslam_tpu_torch.ops import ba as ba_dense
 from mvslam_tpu_torch.ops import ba_sparse, features, features_cuda
 from mvslam_tpu_torch.ops.camera import PinholeCamera
 from mvslam_tpu_torch.parallel.synthetic import make_sequence_ba_problem
 from mvslam_tpu_torch.utils.scene import ellipse_loop, render_planes_sequence
 from mvslam_tpu_torch.utils.timing import cuda_ms, graph_ms, sync_sites
-from mvslam_tpu_torch.viz import load_trajectory_tum
+from mvslam_tpu_torch.viz import Visualizer2d, load_trajectory_tum
 
 KERNEL_SOURCE = "mvslam_tpu_torch/csrc/fast_nms_harris.cu"
 KERNEL_REPLACES = "mvslam_tpu/ops/features_pallas.py:142"
@@ -146,6 +159,42 @@ HOST_VO_SHORT_BA = 20
 #: (PARITY_T_ATOL, PARITY_R_ATOL: the fused tracker's bars)
 HOST_VO_PARITY_FRAMES = 8
 HOST_VO_INLIER_TOL = 3
+
+# -- the remaining entry points (reconstruct, calibration, loader, viewer) -----
+#: reconstruct-scene: frames 0 and 4 of the tracker replay's scene, held to
+#: the scene's truth (rad) and, under the same RANSAC draws, card against
+#: CPU (inliers; rad)
+REC_FRAMES = (0, 4)
+REC_MAX_ROT = 1e-2
+REC_MAX_DIR = 5e-2
+REC_INLIER_TOL = 3
+REC_PARITY_ROT = 1e-3
+REC_PARITY_DIR = 1e-2
+#: calibrate-camera: the 9x6 inner-corner board of OpenCV's sample set
+#: (samples/data/left*.jpg, 640x480), 20 views, projected through a known
+#: camera and radial lens with 0.05 px noise; float64, 60 Gauss-Newton
+#: iterations, distortion on, an undistorted 640x480 preview
+CAL_H, CAL_W, CAL_VIEWS, CAL_ROWS, CAL_COLS = 480, 640, 20, 6, 9
+CAL_K = np.array([[536.07, 0.0, 342.37], [0.0, 536.02, 235.54],
+                  [0.0, 0.0, 1.0]])
+CAL_DIST = np.array([-0.25, 0.08])
+CAL_NOISE_PX = 0.05
+CAL_ITERATIONS = 60
+CAL_MAX_F_ERR = 2.0             # px, fx and fy against truth
+CAL_MAX_K1_ERR = 0.02
+CAL_MAX_RMS = 0.3               # px
+CAL_RTOL = 1e-6                 # K and dist, card against CPU
+#: the preview, card against CPU: from the same K and dist (the resampling
+#: alone), and end to end. The two solves part at 1e-10..1e-9 of K
+#: (float64 reductions in another order over 60 iterations), which moves a
+#: sample by up to ~1e-6 px at the image's edge: 2.1e-8 of a gray level on
+#: the card's first run (NVIDIA H100 80GB HBM3, 700 W); the end-to-end
+#: limit is set a factor 50 above it
+CAL_PREVIEW_ATOL = 1e-9
+CAL_PREVIEW_E2E_ATOL = 1e-6
+#: native loader: the first frames of the replay scene as JPEG through the
+#: app's default mode
+LOADER_FRAMES = 30
 
 #: published peaks of one H100 SXM: HBM3 bytes/s, float32 outside the
 #: tensor cores
@@ -1079,6 +1128,370 @@ def phase_host_vo(gpu: str):
     return launches
 
 
+def codecs() -> dict:
+    """Which host image codecs this machine has: PIL, and libjpeg's header
+    (what the native loader's build needs), found by compiling an include
+    with the host compiler."""
+    try:
+        import PIL  # noqa: F401
+        pil = True
+    except ImportError:
+        pil = False
+    try:
+        proc = subprocess.run(
+            ["g++", "-fsyntax-only", "-x", "c++", "-"],
+            input="#include <cstdio>\n#include <jpeglib.h>\n",
+            capture_output=True, text=True, timeout=60)
+        jpeglib = proc.returncode == 0
+    except (OSError, subprocess.SubprocessError):
+        jpeglib = False
+    log(f"codecs: PIL {'present' if pil else 'absent'}; jpeglib.h "
+        f"{'found' if jpeglib else 'not found'} (g++ -fsyntax-only)")
+    return dict(pil=pil, jpeglib=jpeglib)
+
+
+def bench_camera(h: int = H, w: int = W,
+                 focal: float = FOCAL) -> PinholeCamera:
+    return PinholeCamera.from_params(focal, focal, 0.0, (w - 1) / 2,
+                                     (h - 1) / 2)
+
+
+def save_8bit(path: str, img: np.ndarray, **save_kw) -> None:
+    """An image in [0, 1] as an 8-bit file through PIL (the format by the
+    suffix)."""
+    from PIL import Image
+
+    Image.fromarray((np.clip(img, 0, 1) * 255 + 0.5).astype(np.uint8)).save(
+        path, **save_kw)
+
+
+def pair_errors(T, baseline: np.ndarray) -> tuple[float, float]:
+    """(rotation angle, angle between the translation and ``baseline``) of
+    a recovered pose, in rad."""
+    t = T.t.double().cpu().numpy()
+    cos = float(t @ baseline / (np.linalg.norm(t) * np.linalg.norm(baseline)))
+    return (float(so3_log(T.R.double()).norm()),
+            float(np.arccos(np.clip(cos, -1.0, 1.0))))
+
+
+def phase_reconstruct(dev, gpu: str, have: dict):
+    """The reconstruct-scene app on the card: frames 0 and 4 of the replay
+    scene through its function with the frames in memory (twice: first and
+    second call), and through ``main`` on PNG copies where PIL is present;
+    held to the scene's truth, then card against CPU under the same draws.
+    Returns (launches of the function's first call, what the viewer phase
+    draws, the PNG copies or None)."""
+    n = max(REC_FRAMES) + 1
+    ts = bench_trajectory(HOST_VO_FRAMES)
+    frames = render_planes_sequence(ts, h=H, w=W, focal=FOCAL)
+    img1, img2 = (torch.from_numpy(frames[k]) for k in REC_FRAMES)
+    baseline = ts[REC_FRAMES[1]] - ts[REC_FRAMES[0]]
+    cam = bench_camera()
+    out_dir = tempfile.mkdtemp()
+    runs = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        features_cuda.fast_nms_harris_rank_pyramid.launches = 0
+        t0 = time.perf_counter()
+        rec = reconstruct_scene.reconstruct(img1, img2, cam, out_dir,
+                                            device=dev)
+        torch.cuda.synchronize()
+        runs.append((rec, time.perf_counter() - t0,
+                     features_cuda.fast_nms_harris_rank_pyramid.launches))
+    rec, first_s, launches = runs[0]
+    if rec is None or runs[1][0] is None:
+        raise AssertionError("reconstruct: the pair did not reconstruct")
+    if rec.pair.base.image.device != dev:
+        raise AssertionError(f"reconstruct ran on {rec.pair.base.image.device}")
+    if [r[2] for r in runs] != [2, 2]:
+        raise AssertionError(f"kernel launches per call {[r[2] for r in runs]}"
+                             f" != 2")
+    if not os.path.getsize(rec.ply):
+        raise AssertionError("reconstruction.ply is empty")
+    rot, ang = pair_errors(rec.pair.T_pair_to_base, baseline)
+    if not (rot < REC_MAX_ROT and ang < REC_MAX_DIR):
+        raise AssertionError(f"reconstruct vs truth: rotation {rot}, "
+                             f"direction {ang}")
+    log(f"reconstruct: apps.reconstruct_scene.reconstruct, frames "
+        f"{REC_FRAMES} of the {H}x{W} replay scene on {gpu}: "
+        f"{rec.pair.match_inlier_count} inliers, mean error "
+        f"{rec.pair.mean_error:.4f}, {rec.num_points} points; rotation "
+        f"{rot:.2e} rad (limit {REC_MAX_ROT}), translation direction "
+        f"{ang:.2e} rad (limit {REC_MAX_DIR}) from truth; kernel launches "
+        f"{[r[2] for r in runs]}; wall {first_s * 1e3:.1f} ms first call, "
+        f"{runs[1][1] * 1e3:.1f} ms second; overlay {rec.overlay.shape}")
+
+    pngs = None
+    if have["pil"]:
+        pngs = [os.path.join(out_dir, f"frame{k}.png") for k in REC_FRAMES]
+        for p, k in zip(pngs, REC_FRAMES):
+            save_8bit(p, frames[k])
+        cfg = os.path.join(out_dir, "camera.config")
+        cam.save_to_file(cfg)
+        app_dir = os.path.join(out_dir, "app")
+        features_cuda.fast_nms_harris_rank_pyramid.launches = 0
+        rc = reconstruct_scene.main([*pngs, cfg, "--out-dir", app_dir,
+                                     "--device", str(dev)])
+        app_launches = features_cuda.fast_nms_harris_rank_pyramid.launches
+        written = {f: os.path.getsize(os.path.join(app_dir, f))
+                   for f in ("reconstruction.ply", "matches.png")}
+        if rc != 0 or app_launches != 2 or not all(written.values()):
+            raise AssertionError(f"reconstruct_scene.main: rc {rc}, "
+                                 f"launches {app_launches}, files {written}")
+        log(f"reconstruct: reconstruct_scene.main on PNG copies: rc 0, "
+            f"{app_launches} kernel launches, files {written} (bytes)")
+    else:
+        log("reconstruct: PIL absent: reconstruct_scene.main on image files "
+            "and matches.png not checked (the function ran on the frames in "
+            "memory above)")
+
+    # card against CPU under the same RANSAC draws
+    rng = np.random.default_rng(2027)
+    u = torch.tensor(rng.uniform(size=(
+        ImagePairParams().sfm.num_hypotheses,
+        features.OrbParams().max_features)), dtype=torch.float32)
+    side = {}
+    for name, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        side[name] = reconstruct_scene.reconstruct(
+            img1, img2, cam, tempfile.mkdtemp(), device=d,
+            uniforms=u.to(d))
+    a, b = side["card"].pair, side["cpu"].pair
+    dR = float(so3_log(a.T_pair_to_base.R.double().cpu()
+                       @ b.T_pair_to_base.R.double().T).norm())
+    _, dt = pair_errors(a.T_pair_to_base,
+                        b.T_pair_to_base.t.double().numpy())
+    d_inl = abs(a.match_inlier_count - b.match_inlier_count)
+    log(f"reconstruct card vs CPU, same draws: inliers "
+        f"{a.match_inlier_count}/{b.match_inlier_count} (limit "
+        f"{REC_INLIER_TOL}), rotation {dR:.2e} rad (limit {REC_PARITY_ROT}), "
+        f"translation direction {dt:.2e} rad (limit {REC_PARITY_DIR}), "
+        f"points {side['card'].num_points}/{side['cpu'].num_points}")
+    if d_inl > REC_INLIER_TOL or dR > REC_PARITY_ROT or dt > REC_PARITY_DIR:
+        raise AssertionError("reconstruct: card vs CPU beyond the limits")
+    return launches, rec, pngs
+
+
+def calibration_views(rng) -> np.ndarray:
+    """(CAL_VIEWS, 54, 2) pixels of the 9x6 board (unit squares) seen from
+    random poses through CAL_K and CAL_DIST, every corner inside the image
+    with a 10 px margin, plus CAL_NOISE_PX of noise."""
+    board = calibrate_camera.board_points(CAL_ROWS, CAL_COLS)
+    X = np.concatenate([board, np.zeros((len(board), 1))], 1)
+    centre = X.mean(0)
+    views = []
+    while len(views) < CAL_VIEWS:
+        w = rng.uniform(-0.5, 0.5, 3) * np.array([1.0, 1.0, 0.6])
+        R = so3_exp(torch.tensor(w)).numpy()
+        t = -R @ centre + np.array([rng.uniform(-2, 2), rng.uniform(-1.5, 1.5),
+                                    rng.uniform(11.0, 18.0)])
+        Xc = X @ R.T + t
+        xy = Xc[:, :2] / Xc[:, 2:3]
+        r2 = np.sum(xy * xy, -1, keepdims=True)
+        xy = xy * (1.0 + CAL_DIST[0] * r2 + CAL_DIST[1] * r2 * r2)
+        px = xy @ CAL_K[:2, :2].T + CAL_K[:2, 2]
+        if (px.min() < 10 or px[:, 0].max() > CAL_W - 10
+                or px[:, 1].max() > CAL_H - 10):
+            continue
+        views.append(px + rng.normal(0, CAL_NOISE_PX, px.shape))
+    return np.stack(views)
+
+
+def phase_calibration(dev, gpu: str, orb: features.OrbParams) -> dict:
+    """A full-size calibration session on the card through the app's solve
+    (float64, distortion, 60 GN iterations, undistorted 640x480 preview,
+    camera file), held to truth and to the same solve on the CPU; then one
+    K1 pyramid launch on the preview, timed as a graph replay."""
+    views = calibration_views(np.random.default_rng(2028))
+    preview = render_planes_sequence(bench_trajectory(1), h=CAL_H, w=CAL_W,
+                                     focal=500.0)[0]
+    args = (list(views), CAL_ROWS, CAL_COLS, 1.0, True, preview,
+            CAL_ITERATIONS)
+    calibrate_camera.calibrate_views(*args, device=dev)          # warm
+    (res, cam, und), ms = timed_ms(
+        lambda: calibrate_camera.calibrate_views(*args, device=dev))
+    if res.K.device != dev or res.K.dtype != torch.float64:
+        raise AssertionError(f"calibration on {res.K.device} {res.K.dtype}")
+    _, prev_ms = timed_ms(lambda: calibrate_camera.undistort_image(
+        torch.as_tensor(preview).to(dev, torch.float64), res.K, res.dist))
+    K, dist = res.K.cpu().numpy(), res.dist.cpu().numpy()
+    rms = float(res.rms_error)
+    with tempfile.TemporaryDirectory() as d:
+        cfg = os.path.join(d, "camera.config")
+        cam.save_to_file(cfg)
+        back = PinholeCamera.load_from_file(cfg, dtype=torch.float64)
+    if not np.allclose(back.K.numpy(), K, rtol=1e-12):
+        raise AssertionError("camera file does not hold K")
+    if not (abs(K[0, 0] - CAL_K[0, 0]) < CAL_MAX_F_ERR
+            and abs(K[1, 1] - CAL_K[1, 1]) < CAL_MAX_F_ERR
+            and abs(dist[0] - CAL_DIST[0]) < CAL_MAX_K1_ERR
+            and rms < CAL_MAX_RMS):
+        raise AssertionError(f"calibration vs truth: K {K}, dist {dist}, "
+                             f"rms {rms}")
+    cres, _, cund = calibrate_camera.calibrate_views(*args, device="cpu")
+    dK = float(np.abs(K - cres.K.numpy()).max() / np.abs(K).max())
+    dD = float(np.abs(dist - cres.dist.numpy()).max()
+               / np.abs(cres.dist.numpy()).max())
+    dP = float((und.cpu() - calibrate_camera.undistort_image(
+        torch.as_tensor(preview).double(), res.K.cpu(), res.dist.cpu())
+    ).abs().max())
+    dE = float((und.cpu() - cund).abs().max())
+    # no host read inside the solve: the synchronising calls of one
+    # calibrate_planar on the card, by source line
+    f64 = torch.float64
+    _, sites = sync_sites(lambda: calibrate_camera.calibrate_planar(
+        torch.tensor(calibrate_camera.board_points(CAL_ROWS, CAL_COLS),
+                     dtype=f64, device=dev),
+        torch.tensor(views, dtype=f64, device=dev),
+        torch.ones(views.shape[:2], dtype=f64, device=dev),
+        refine_iterations=CAL_ITERATIONS, estimate_distortion=True))
+    in_solve = [x for x in sites if x.startswith(("calibration.py",
+                                                  "homography.py"))]
+    log(f"calibration: calibrate_camera.calibrate_views, {CAL_VIEWS} views "
+        f"of a {CAL_COLS}x{CAL_ROWS} board at {CAL_W}x{CAL_H}, float64, "
+        f"distortion, {CAL_ITERATIONS} GN iterations on {gpu}: fx "
+        f"{K[0, 0]:.3f} fy {K[1, 1]:.3f} (truth {CAL_K[0, 0]}, "
+        f"{CAL_K[1, 1]}; limit {CAL_MAX_F_ERR} px), cx {K[0, 2]:.3f} cy "
+        f"{K[1, 2]:.3f}, k1 {dist[0]:.5f} k2 {dist[1]:.5f} (truth "
+        f"{CAL_DIST.tolist()}; k1 limit {CAL_MAX_K1_ERR}), rms {rms:.4f} px "
+        f"(limit {CAL_MAX_RMS}); {ms:.1f} ms per solve after a warm call "
+        f"(preview included) = {CAL_ITERATIONS / (ms * 1e-3):.1f} GN "
+        f"iterations/s; preview alone {prev_ms:.2f} ms; card vs CPU: K "
+        f"{dK:.1e}, dist {dD:.1e} relative (limit {CAL_RTOL}), preview "
+        f"from the same K and dist {dP:.1e} (limit {CAL_PREVIEW_ATOL}), "
+        f"end to end {dE:.1e} (limit {CAL_PREVIEW_E2E_ATOL}); synchronising "
+        f"calls of calibrate_planar on the card {len(sites)}: "
+        f"{dict(collections.Counter(sites))}")
+    if (dK > CAL_RTOL or dD > CAL_RTOL or dP > CAL_PREVIEW_ATOL
+            or dE > CAL_PREVIEW_E2E_ATOL):
+        raise AssertionError("calibration: card vs CPU beyond the limits")
+    if in_solve:
+        raise AssertionError(f"calibrate_planar reads on the host: {in_solve}")
+
+    # one K1 pyramid launch at 480x640 on the preview, as in phase_kernel
+    levels = features.pyramid(und.to(torch.float32).contiguous(), orb)
+    kargs = (orb.fast_threshold, orb.harris_k, orb.border)
+    ranks = features_cuda.fast_nms_harris_rank_pyramid(levels, *kargs)
+    bound = k1_bound(levels, ranks, orb)
+    dev_ms = graph_ms(lambda: features_cuda.fast_nms_harris_rank_pyramid(
+        levels, *kargs), TIMING_REPS)
+    log(f"calibration: K1 on the preview's 8-level {CAL_H}x{CAL_W} pyramid "
+        f"({bound['pixels']} pixels, {bound['corners']} corners): device "
+        f"(CUDA-graph replay) {dev_ms:.5f} ms, bound {bound['bound_ms']:.5f} "
+        f"ms by {bound['bound_by']}")
+    return dict(k1_480x640_ms=dev_ms, k1_480x640_bound_ms=bound["bound_ms"])
+
+
+def phase_native_loader(dev, gpu: str, have: dict) -> int:
+    """The native loader: built from the port's source where libjpeg's
+    header is found; where PIL is present too, the first LOADER_FRAMES
+    frames of the replay scene as JPEG, decoded one by one and through the
+    prefetch queue (bitwise equal, in order), then through the app's
+    default mode, against the same frames read with PIL. Returns the
+    app's kernel launches (0 when not run)."""
+    if not have["jpeglib"]:
+        log("native loader: jpeglib.h not found: the loader was not built; "
+            "its decode, its prefetch queue and the app's JPEG frame source "
+            "were not checked (the CPU tests cover them)")
+        return 0
+    t0 = time.perf_counter()
+    native_loader.load_library()            # a failed build raises
+    log(f"native loader: built {native_loader._SOURCE.name} with g++ into "
+        f"{native_loader.BUILD_DIR} in {time.perf_counter() - t0:.2f} s")
+    if not have["pil"]:
+        log("native loader: PIL absent: no JPEG could be written; decode, "
+            "prefetch order and the app's JPEG frame source not checked")
+        return 0
+    n = LOADER_FRAMES
+    frames = render_planes_sequence(bench_trajectory(HOST_VO_FRAMES), h=H,
+                                    w=W, focal=FOCAL)[:n]
+    ds = tempfile.mkdtemp()
+    paths = [os.path.join(ds, f"{k:03d}.jpg") for k in range(n)]
+    for p, img in zip(paths, frames):
+        save_8bit(p, img, quality=95)
+    direct = [native_loader.decode_jpeg_gray(p) for p in paths]
+    with native_loader.PrefetchLoader(paths) as it:
+        queued = list(it)
+    if [i for i, _ in queued] != list(range(n)) or not all(
+            np.array_equal(a, b) for (_, a), b in zip(queued, direct)):
+        raise AssertionError("prefetch loader: frames out of order or not "
+                             "bitwise equal to direct decodes")
+    cam = bench_camera()
+    out = os.path.join(ds, "out")
+    args = argparse.Namespace(device=str(dev), resume=None, checkpoint=None,
+                              out_dir=out, dataset=ds, quiet=True)
+    torch.cuda.synchronize()
+    native_loader.PrefetchLoader.delivered = 0
+    features_cuda.fast_nms_harris_rank_pyramid.launches = 0
+    t0 = time.perf_counter()
+    rc = _run_visual_odometer(args, cam, paths)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = features_cuda.fast_nms_harris_rank_pyramid.launches
+    delivered = native_loader.PrefetchLoader.delivered
+    written = {f: os.path.exists(os.path.join(out, f))
+               for f in ("trajectory.tum", "scene.ply")}
+    if rc != 0 or delivered != n or launches != n or not all(
+            written.values()):
+        raise AssertionError(f"app via the loader: rc {rc}, frames through "
+                             f"the loader {delivered}, launches {launches}, "
+                             f"files {written}")
+    fm, vo = FrameManager(camera=cam, device=dev), VisualOdometer(device=dev)
+    t0 = time.perf_counter()
+    run_visual_odometer((load_image_grayscale(p) for p in paths), fm, vo,
+                        os.path.join(ds, "pil"), quiet=True)
+    torch.cuda.synchronize()
+    pil_wall = time.perf_counter() - t0
+    log(f"native loader: {n} JPEG frames (quality 95) of the {H}x{W} replay "
+        f"scene: decode_jpeg_gray equals the prefetch queue's frames bitwise, "
+        f"in order; _run_visual_odometer on the directory (default mode, "
+        f"{gpu}): {delivered} frames through the loader, {launches} kernel "
+        f"launches, files {sorted(written)}, {n / wall:.2f} frames/s "
+        f"({wall:.2f} s); the same frames read with PIL through "
+        f"run_visual_odometer: {n / pil_wall:.2f} frames/s ({pil_wall:.2f} s)")
+    return launches
+
+
+def phase_viewer(dev, rec, pngs, have: dict) -> None:
+    """The threaded 2D viewer on the reconstruct phase's keyframe and
+    matched pair (features on the card), and the two feature demos on its
+    PNG copies with their launches counted, where PIL is present."""
+    if not have["pil"]:
+        log("viewer: PIL absent: Visualizer2d's PNGs and the feature demos "
+            "not checked")
+        return
+    pair, f1 = rec.pair, rec.pair.base
+    f2 = rec.pair.pair
+    if f1.features.xy.device != dev:
+        raise AssertionError("viewer: features not on the card")
+    out = tempfile.mkdtemp()
+    v = Visualizer2d(out)
+    v.show_keyframe(f1.image, f1.features.xy, f1.features.mask)
+    v.show_matched_pair(f1.image, f1.features.xy, f2.image, f2.features.xy,
+                        pair.match.idx, pair.match.mask,
+                        pair.result.inlier_mask)
+    v.close()
+    files = sorted(f for f in os.listdir(out) if f.startswith("view2d_"))
+    if v._thread.is_alive() or files != ["view2d_00001.png",
+                                         "view2d_00002.png"]:
+        raise AssertionError(f"viewer: thread alive {v._thread.is_alive()}, "
+                             f"files {files}")
+    counts = {}
+    for name, fn, want in (("visual-feature", demos.demo_visual_feature, 2),
+                           ("visualizer-2d", demos.demo_visualizer_2d, 4)):
+        d = os.path.join(out, name)
+        os.makedirs(d)
+        features_cuda.fast_nms_harris_rank_pyramid.launches = 0
+        rc = fn(*pngs, d, dev)
+        counts[name] = features_cuda.fast_nms_harris_rank_pyramid.launches
+        if rc != 0 or counts[name] != want or not os.path.getsize(
+                os.path.join(d, "matches.png")):
+            raise AssertionError(f"demo {name}: rc {rc}, launches "
+                                 f"{counts[name]} (want {want})")
+    log(f"viewer: Visualizer2d on the card's keyframe and matched pair: "
+        f"{files} written, render thread joined; demos visual-feature and "
+        f"visualizer-2d on the PNG copies: kernel launches {counts}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() "
@@ -1104,20 +1517,29 @@ def main() -> int:
     del recorded
     phase_sparse_ba(dev, card)
     host_launches = phase_host_vo(card)
+    have = codecs()
+    rec_launches, rec, pngs = phase_reconstruct(dev, card, have)
+    k1.update(phase_calibration(dev, card, params.orb))
+    loader_launches = phase_native_loader(dev, card, have)
+    phase_viewer(dev, rec, pngs, have)
 
     # each path was driven with the count set to 0 just before it and read
     # just after; no single PyTorch call computes the corner front: no
     # library time
+    by_path = {"tracker_replay": (launches, frames),
+               "slam": (slam_launches, LOOP_FRAMES),
+               "host_vo": (host_launches, HOST_VO_FRAMES),
+               "reconstruct": (rec_launches, len(REC_FRAMES)),
+               "native_loader_app": (
+                   loader_launches, LOADER_FRAMES if loader_launches else 0)}
+    total = sum(n for n, _ in by_path.values())
     log(json.dumps({"kernels": [{
         "name": "fast_nms_harris_rank", "route": "cuda",
         "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
-        "launches": launches + slam_launches + host_launches,
-        "launches_by_path": {"tracker_replay": launches,
-                             "slam": slam_launches,
-                             "host_vo": host_launches},
-        "launches_per_frame": (launches + slam_launches + host_launches)
-        / (frames + LOOP_FRAMES + HOST_VO_FRAMES), **k1,
-        "library_ms": None,
+        "launches": total,
+        "launches_by_path": {k: n for k, (n, _) in by_path.items()},
+        "launches_per_frame": total / sum(f for _, f in by_path.values()),
+        **k1, "library_ms": None,
     }]}))
     log(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,28 +1,36 @@
 """mvslam_tpu_torch — the PyTorch/CUDA port of ``mvslam_tpu``.
 
-The fused visual-odometry tracker (``frontend/vo_jit.py``), the SLAM
-back-end on top of it and every module they run, mirrored path for path
-from the JAX package:
+Every module of the JAX package but its distributed layer, mirrored path
+for path:
 
-- ``mvslam_tpu_torch.math``     — SO3/SE3 Lie groups, small-matrix linalg.
+- ``mvslam_tpu_torch.math``     — SO3/SE3 Lie groups, small-matrix linalg,
+  Kalman filtering, signal processing, state estimates.
 - ``mvslam_tpu_torch.ops``      — camera, ORB features (with the hand-written
   CUDA corner kernel ``csrc/fast_nms_harris.cu``), matching, KLT, RANSAC,
-  epipolar geometry, triangulation, SfM, P3P/PnP, dense and sparse bundle
-  adjustment.
-- ``mvslam_tpu_torch.frontend`` — the fused tracker ``vo_jit``.
+  epipolar geometry, homographies, triangulation, SfM, P3P/PnP, dense and
+  sparse bundle adjustment, planar camera calibration and undistortion.
+- ``mvslam_tpu_torch.frontend`` — the fused tracker ``vo_jit`` and the
+  host-orchestrated front end (``FrameManager`` -> ``VisualOdometer``).
 - ``mvslam_tpu_torch.backend``  — SE3 and Sim3 pose graphs, the host-side
   ``Graph``, the keyframe / loop-closure back-end ``PoseGraphBackend``.
 - ``mvslam_tpu_torch.parallel`` — synthetic BA problem generators.
-- ``mvslam_tpu_torch.apps``     — the ``visual_odometer`` replay app.
-- ``mvslam_tpu_torch.io``, ``mvslam_tpu_torch.viz`` — images, manifests,
-  trajectory / point-cloud / overlay exports.
-- ``mvslam_tpu_torch.convert``  — states, problems and the back-end's
-  skeleton to/from numpy dicts.
-- ``mvslam_tpu_torch.utils``    — the synthetic two-plane scene renderer,
-  timing on the card, error codes.
+- ``mvslam_tpu_torch.apps``     — the command-line apps: ``visual_odometer``,
+  ``reconstruct_scene``, ``calibrate_camera``, ``demos``, ``video_capture``.
+- ``mvslam_tpu_torch.io``       — images, manifests, checkpoints, the native
+  (libjpeg) prefetching loader built from ``csrc/loader.cpp``.
+- ``mvslam_tpu_torch.viz``      — trajectory / point-cloud / overlay exports
+  and the threaded headless viewers.
+- ``mvslam_tpu_torch.convert``  — states, problems, the back-end's skeleton
+  and calibration results to/from numpy dicts.
+- ``mvslam_tpu_torch.utils``    — logging, synchronisation primitives,
+  strings, directory listing, the host clock and timing on the card, the
+  synthetic two-plane scene renderer, error codes.
 
 The port imports ``torch`` and numpy only: never ``jax`` and never
-``mvslam_tpu``.
+``mvslam_tpu``. The JAX package's ``MVSLAM_PLATFORM`` variable (which picks
+JAX's platform at import) has no counterpart: the port's entry points take
+a ``device`` (``--device`` in the apps) and run on the card unless told
+otherwise.
 """
 
 __version__ = "0.1.0"
@@ -34,3 +42,9 @@ import torch as _torch
 # convolution in full float32, as the JAX package pins its matmul precision.
 _torch.backends.cuda.matmul.allow_tf32 = False
 _torch.backends.cudnn.allow_tf32 = False
+
+from mvslam_tpu_torch import config as config  # noqa: F401, E402
+from mvslam_tpu_torch.math import lie as lie  # noqa: F401, E402
+from mvslam_tpu_torch.math import linalg as linalg  # noqa: F401, E402
+from mvslam_tpu_torch.math.lie import SE3 as SE3  # noqa: F401, E402
+from mvslam_tpu_torch.ops.camera import PinholeCamera as PinholeCamera  # noqa: F401, E402

@@ -17,8 +17,11 @@ trajectory (``trajectory_optimized.tum``). The back-end's state is not
 checkpointed: ``--checkpoint`` and ``--resume`` combined with
 ``--pose-graph`` are refused instead of ignored.
 
-Frames are read through ``mvslam_tpu_torch.io.image`` only (PIL): the JAX
-package's native prefetching JPEG loader is not part of this package.
+The default mode reads a dataset of JPEG frames through the native
+prefetching loader (``io.native_loader``: libjpeg, decode-ahead on host
+threads) when it builds here, and every other dataset through
+``io.image`` (PIL), as the JAX package's app does; ``--pose-graph`` reads
+through PIL.
 
 Everything runs on the card unless ``--device cpu`` is given.
 
@@ -45,7 +48,7 @@ from mvslam_tpu_torch.frontend.vo_jit import (
     VoJitParams, make_vo_step, vo_init_state,
 )
 from mvslam_tpu_torch.io import (
-    iter_directory, load_image_grayscale, read_manifest,
+    iter_directory, load_image_grayscale, native_loader, read_manifest,
 )
 from mvslam_tpu_torch.io.checkpoint import load_checkpoint, save_checkpoint
 from mvslam_tpu_torch.math.lie import SE3
@@ -175,13 +178,27 @@ def run_visual_odometer(frames, fm: FrameManager, vo: VisualOdometer,
     return results
 
 
+def frame_source(image_paths):
+    """The default mode's frames, in order, as (H, W) float32 CPU tensors:
+    through the native prefetch loader (decode-ahead) when it is available
+    and every path is a JPEG, through PIL otherwise."""
+    if native_loader.available() and all(
+            p.lower().endswith((".jpg", ".jpeg")) for p in image_paths):
+        with native_loader.PrefetchLoader(image_paths) as it:
+            for _, arr in it:
+                yield torch.from_numpy(arr)
+    else:
+        for path in image_paths:
+            yield load_image_grayscale(path)
+
+
 def _run_visual_odometer(args, cam: PinholeCamera, image_paths) -> int:
     """FrameManager -> VisualOdometer replay (the default mode)."""
     fm = FrameManager(camera=cam, device=args.device)
     vo = VisualOdometer(device=args.device)
     if args.resume:
         load_checkpoint(args.resume, vo)
-    run_visual_odometer((load_image_grayscale(p) for p in image_paths), fm,
+    run_visual_odometer(frame_source(image_paths), fm,
                         vo, args.out_dir or args.dataset, quiet=args.quiet,
                         names=[os.path.basename(p) for p in image_paths],
                         checkpoint=args.checkpoint)

@@ -1,7 +1,7 @@
 """Numpy dicts to and from the port's data: the tracker state (its
 "weights"), a step's outputs, the BA and pose-graph problems, the
-back-end's skeleton, and the host-orchestrated front end's feature sets,
-frames and whole odometer. The parity tests carry the same data through the JAX
+back-end's skeleton, the host-orchestrated front end's feature sets,
+frames and whole odometer, and calibration results. The parity tests carry the same data through the JAX
 package and the port with these; a run on the card and one on the CPU share
 their inputs the same way.
 
@@ -28,6 +28,7 @@ from mvslam_tpu_torch.frontend.visual_odometer import VisualOdometer, VoState
 from mvslam_tpu_torch.frontend.vo_jit import VoJitState, VoStepOut
 from mvslam_tpu_torch.math.lie import SE3
 from mvslam_tpu_torch.ops.ba_sparse import SparseBAProblem
+from mvslam_tpu_torch.ops.calibration import CalibrationResult
 from mvslam_tpu_torch.ops.camera import PinholeCamera
 from mvslam_tpu_torch.ops.features import FeatureSet
 
@@ -424,3 +425,28 @@ def odometer_from_numpy(d: dict, vo: VisualOdometer) -> VisualOdometer:
         vo.state = VoState.TRACKING
     vo._frames = [frame_from_numpy(f, dev) for f in d.get("window", [])]
     return vo
+
+
+def calibration_result_to_numpy(res) -> dict:
+    """A ``CalibrationResult`` of either package -> numpy arrays: ``K``,
+    ``extrinsics_R``, ``extrinsics_t``, ``rms_error``, ``per_view_error``
+    and, when distortion was estimated, ``dist``."""
+    d = {"K": _numpy(res.K), "extrinsics_R": _numpy(res.extrinsics.R),
+         "extrinsics_t": _numpy(res.extrinsics.t),
+         "rms_error": _numpy(res.rms_error),
+         "per_view_error": _numpy(res.per_view_error)}
+    if res.dist is not None:
+        d["dist"] = _numpy(res.dist)
+    return d
+
+
+def calibration_result_from_numpy(d: dict, device="cuda",
+                                  dtype=None) -> CalibrationResult:
+    """The port's ``CalibrationResult`` on ``device`` from the dict of
+    :func:`calibration_result_to_numpy` (floats keep their dtype when
+    ``dtype`` is None)."""
+    t = {k: _tensor(v, device, dtype) for k, v in d.items()}
+    return CalibrationResult(
+        K=t["K"], extrinsics=SE3(t["extrinsics_R"], t["extrinsics_t"]),
+        rms_error=t["rms_error"], per_view_error=t["per_view_error"],
+        dist=t.get("dist"))

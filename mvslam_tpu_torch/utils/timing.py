@@ -1,7 +1,11 @@
-"""Timing on the card: eager time and device time of a launch, and
-where a piece of code synchronises with the device.
+"""Timing: the host's monotonic clock and stage timers (copies of
+``mvslam_tpu.utils.timing``), and timing on the card: eager time and
+device time of a launch, and where a piece of code synchronises with the
+device.
 
-All helpers need a CUDA device and raise without one. ``cuda_ms`` times
+``get_time_ms``/``get_time_us`` count from the module's import,
+``StageTimers`` accumulates wall-clock time per named stage. The card's
+helpers need a CUDA device and raise without one. ``cuda_ms`` times
 ``fn`` as the host issues it (Python, allocator and launch included, so a
 short kernel shows the host's issue rate). ``graph_ms`` captures ``fn``
 in a CUDA graph and replays it, so the host is out of the loop (but for
@@ -15,11 +19,58 @@ call it made (a read of a device value, an upload from pageable memory).
 
 from __future__ import annotations
 
+import contextlib
 import os
+import time
 import warnings
-from typing import Callable
+from collections import defaultdict
+from typing import Callable, Dict
 
 import torch
+
+_START = time.monotonic()
+
+
+def get_time_ms() -> int:
+    """Milliseconds since process start (reference ``os/time.cpp:10-33``)."""
+    return int((time.monotonic() - _START) * 1e3)
+
+
+def get_time_us() -> int:
+    """Microseconds since process start."""
+    return int((time.monotonic() - _START) * 1e6)
+
+
+def sleep_ms(ms: float) -> None:
+    time.sleep(ms / 1e3)
+
+
+class StageTimers:
+    """Accumulating per-stage wall-clock timers for pipeline observability."""
+
+    def __init__(self) -> None:
+        self.total_s: Dict[str, float] = defaultdict(float)
+        self.count: Dict[str, int] = defaultdict(int)
+
+    @contextlib.contextmanager
+    def stage(self, name: str):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            dt = time.perf_counter() - t0
+            self.total_s[name] += dt
+            self.count[name] += 1
+
+    def summary(self) -> Dict[str, Dict[str, float]]:
+        return {
+            name: {
+                "total_s": self.total_s[name],
+                "count": self.count[name],
+                "mean_ms": 1e3 * self.total_s[name] / max(1, self.count[name]),
+            }
+            for name in self.total_s
+        }
 
 
 def _between_events(fn: Callable[[], object], reps: int) -> float:

@@ -6,11 +6,16 @@ and the float64 graph solve, each against the same code on the CPU fed the
 same inputs. Its host-orchestrated front end (``FrameManager`` ->
 ``VisualOdometer``): the devices it sits on, the kernel launched once per
 frame, the card against the CPU under the same draws, the checkpoint round
-trip, and the writes through repeating indices. Every test needs a CUDA card
+trip, and the writes through repeating indices. The remaining entry points:
+the calibration solve, its preview and the homographies against the CPU,
+the reconstruct-scene solve's two kernel launches, and the 2D viewer fed
+tensors on the card. Every test needs a CUDA card
 and skips without one; this file imports no JAX, so on the card it runs as
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
+
+import os
 
 import numpy as np
 import pytest
@@ -410,3 +415,73 @@ def test_kalman_follows_its_inputs_device(dev):
         eye[:1].cpu(), torch.ones(1, dtype=torch.float64),
         eye[:1, :1].cpu())[0]
     assert float((state.x.cpu() - cpu.x).abs().max()) <= 1e-12
+
+
+def test_calibration_on_the_card_equals_the_cpu(dev):
+    """``calibrate_planar`` with distortion and ``undistort_image`` in
+    float64 on the card against the CPU on the same views."""
+    from mvslam_tpu_torch.math.lie import so3_exp
+    from mvslam_tpu_torch.ops import calibration, homography
+
+    rng = np.random.default_rng(9)
+    K = np.array([[420.0, 0.0, 310.0], [0.0, 415.0, 235.0], [0, 0, 1.0]])
+    gx, gy = np.meshgrid(np.arange(9), np.arange(6))
+    board = np.stack([gx.ravel(), gy.ravel()], -1) * 0.1
+    board = board - board.mean(0)
+    X = np.concatenate([board, np.zeros((54, 1))], 1)
+    views = []
+    for v in range(8):
+        R = so3_exp(torch.tensor(rng.uniform(-0.35, 0.35, 3))).numpy()
+        Xc = X @ R.T + np.array([0.04 * v - 0.14, 0.0, 0.8 + 0.08 * v])
+        xy = Xc[:, :2] / Xc[:, 2:]
+        r2 = (xy * xy).sum(-1, keepdims=True)
+        xy = xy * (1 - 0.25 * r2 + 0.08 * r2 * r2)
+        views.append(xy @ K[:2, :2].T + K[:2, 2] + rng.normal(0, 0.05, (54, 2)))
+    args = [torch.tensor(a) for a in (board, np.stack(views),
+                                      np.ones((8, 54)))]
+    img = torch.tensor(rng.uniform(size=(120, 160)))
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        res = calibration.calibrate_planar(
+            *(a.to(d) for a in args), refine_iterations=60,
+            estimate_distortion=True)
+        und = calibration.undistort_image(img.to(d), res.K / 3.0, res.dist)
+        H = homography.find_homography(*(a.to(d) for a in (
+            args[0].expand(8, 54, 2), args[1], args[2])))
+        out[d.type] = [t.cpu() for t in (res.K, res.dist, und, H)]
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert float((a - b).abs().max()) <= 1e-9 * max(
+            float(b.abs().max()), 1.0)
+    assert abs(float(out["cuda"][1][0]) + 0.25) < 0.02
+
+
+def test_reconstruct_launches_twice_on_the_card(dev, tmp_path):
+    from mvslam_tpu_torch.apps.reconstruct_scene import reconstruct
+
+    i = np.arange(5)
+    ts = np.stack([i * 0.12, 0.03 * np.sin(i * 0.25), np.zeros(5)], 1)
+    frames = render_planes_sequence(ts, h=288, w=384, focal=300.0)
+    cam = PinholeCamera.from_params(300.0, 300.0, 0.0, 191.5, 143.5)
+    features_cuda.fast_nms_harris_rank_pyramid.launches = 0
+    rec = reconstruct(torch.from_numpy(frames[0]), torch.from_numpy(frames[4]),
+                      cam, str(tmp_path), device=dev)
+    assert features_cuda.fast_nms_harris_rank_pyramid.launches == 2
+    assert rec.pair.T_pair_to_base.t.is_cuda and rec.num_points > 100
+    t = rec.pair.T_pair_to_base.t.cpu().double().numpy()
+    base = ts[4] - ts[0]
+    assert float(t @ base / np.linalg.norm(t) / np.linalg.norm(base)) > 0.99
+
+
+def test_viewer_takes_card_tensors(dev, tmp_path):
+    pytest.importorskip("PIL")
+    from mvslam_tpu_torch.viz import Visualizer2d
+
+    img = torch.rand(48, 64, device=dev)
+    xy = torch.tensor([[5.0, 5.0], [30.0, 20.0]], device=dev)
+    v = Visualizer2d(str(tmp_path))
+    v.show_keyframe(img, xy, torch.ones(2, dtype=torch.bool, device=dev))
+    v.show_matched_pair(img, xy, img, xy, torch.arange(2, device=dev),
+                        torch.ones(2, dtype=torch.bool, device=dev))
+    v.close()
+    assert sorted(f for f in os.listdir(tmp_path) if f.startswith("view2d_")
+                  ) == ["view2d_00001.png", "view2d_00002.png"]

@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: no module of it (nor the scripts at the
 root that drive it) imports JAX or the JAX package, none steps down from
-the card to the CPU on its own, and its entry points default to the card;
+the card to the CPU on its own, its entry points and apps default to the
+card, and it exports the JAX package's package-level names;
 its numpy copies (scene renderer, rBRIEF pattern) equal the originals; its
 state converter round-trips."""
 
@@ -52,7 +53,12 @@ def test_every_new_module_is_found():
                  "frontend.data_types", "frontend.camera_manager",
                  "frontend.frame_manager", "frontend.image_pair",
                  "frontend.visual_odometer", "io.checkpoint",
-                 "utils.indexing"):
+                 "utils.indexing", "ops.homography", "ops.calibration",
+                 "io.native_loader", "viz.viewer", "utils.fs",
+                 "utils.logging", "utils.strings", "utils.sync",
+                 "utils.timing", "apps.reconstruct_scene",
+                 "apps.calibrate_camera", "apps.demos",
+                 "apps.video_capture"):
         assert f"mvslam_tpu_torch.{name}" in mods, name
     assert len(port_sources()) == len(mods) + len(ROOT_SCRIPTS)
 
@@ -73,6 +79,27 @@ def test_port_imports_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_package_level_names():
+    """The names the JAX package exports at its top level and from its
+    ``utils``, ``io`` and ``viz`` subpackages, exported by the port's."""
+    import mvslam_tpu_torch as port
+    from mvslam_tpu_torch import io, utils, viz
+
+    for name in ("config", "lie", "linalg", "SE3", "PinholeCamera"):
+        assert getattr(port, name) is not None, name
+    assert port.SE3 is port.lie.SE3
+    for name in ("Logger", "Logging", "Event", "Lock", "Mutex"):
+        assert getattr(utils, name) is not None, name
+    for name in ("iter_directory", "load_image_grayscale", "load_image_rgb",
+                 "read_manifest", "save_image", "write_manifest",
+                 "native_loader"):
+        assert getattr(io, name) is not None, name
+    for name in ("Visualizer2d", "Visualizer2dParams", "Visualizer3d",
+                 "Visualizer3dParams", "draw_keypoints", "draw_matches",
+                 "save_scene_ply", "save_trajectory_tum"):
+        assert getattr(viz, name) is not None, name
 
 
 def test_no_source_names_jax_or_the_jax_package():
@@ -148,9 +175,15 @@ def _entry_points():
     from mvslam_tpu_torch.frontend import (
         CameraManager, FrameManager, VisualOdometer,
     )
+    from mvslam_tpu_torch.apps import calibrate_camera, demos
+    from mvslam_tpu_torch.apps import reconstruct_scene
     from mvslam_tpu_torch.parallel import synthetic
 
     return [vo_init_state, state_from_numpy, convert.step_out_from_numpy,
+            convert.calibration_result_from_numpy,
+            reconstruct_scene.reconstruct, calibrate_camera.calibrate_views,
+            demos.demo_visual_feature, demos.demo_visualizer_2d,
+            demos.demo_visualizer_3d,
             convert.sparse_ba_problem_from_numpy,
             convert.pose_graph_data_from_numpy,
             convert.sim3_graph_data_from_numpy, convert.backend_from_numpy,
@@ -186,6 +219,17 @@ def test_front_end_builds_on_the_device_it_is_given():
     assert vo._map.last_seen.dtype == torch.int64
     fm = FrameManager(device="cpu")
     assert fm.camera.K.device.type == "cpu"
+
+
+@pytest.mark.parametrize("app", ["reconstruct_scene", "calibrate_camera",
+                                 "demos", "visual_odometer"])
+def test_apps_take_device_defaulting_to_the_card(app):
+    """Each app that computes parses ``--device``, default ``cuda``."""
+    import importlib
+
+    src = inspect.getsource(importlib.import_module(
+        f"mvslam_tpu_torch.apps.{app}").main)
+    assert 'ap.add_argument("--device", default="cuda",' in src
 
 
 @pytest.mark.parametrize("flags,runner", [
