@@ -21,6 +21,11 @@ against the CPU under the same draws), a 20-view ``calibrate_camera``
 solve with radial distortion and its undistorted preview (against truth
 and the CPU), the native JPEG prefetch loader feeding the app's default
 mode, and the threaded 2D viewer and feature demos on the card's features.
+Then the ORB options (the batched layout and the subpixel fit: one kernel
+launch per image, batched against unrolled, subpixel against the CPU,
+launches and ms per call) and the distributed solvers (one NCCL rank
+against the ungrouped solves, two gloo ranks on the same card, ms per LM
+iteration with and without the group).
 
     python3 chip_smoke.py
 
@@ -34,17 +39,21 @@ from __future__ import annotations
 
 import argparse
 import collections
+import hashlib
 import json
 import os
 import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
 
-from mvslam_tpu_torch import convert
+from mvslam_tpu_torch import convert, parallel
 from mvslam_tpu_torch.apps import calibrate_camera, demos, reconstruct_scene
 from mvslam_tpu_torch.apps.visual_odometer import (
     _run_visual_odometer, run_pose_graph, run_visual_odometer,
@@ -62,7 +71,10 @@ from mvslam_tpu_torch.math.lie import so3_exp, so3_log
 from mvslam_tpu_torch.ops import ba as ba_dense
 from mvslam_tpu_torch.ops import ba_sparse, features, features_cuda
 from mvslam_tpu_torch.ops.camera import PinholeCamera
-from mvslam_tpu_torch.parallel.synthetic import make_sequence_ba_problem
+from mvslam_tpu_torch.parallel import dist_ba_sparse
+from mvslam_tpu_torch.parallel.synthetic import (
+    make_sequence_ba_problem, make_window_ba_problem,
+)
 from mvslam_tpu_torch.utils.scene import ellipse_loop, render_planes_sequence
 from mvslam_tpu_torch.utils.timing import cuda_ms, graph_ms, sync_sites
 from mvslam_tpu_torch.viz import Visualizer2d, load_trajectory_tum
@@ -192,9 +204,36 @@ CAL_RTOL = 1e-6                 # K and dist, card against CPU
 #: limit is set a factor 50 above it
 CAL_PREVIEW_ATOL = 1e-9
 CAL_PREVIEW_E2E_ATOL = 1e-6
+#: solves per mode of the call-to-call probe of the float64 solve
+CAL_PROBE_CALLS = 5
 #: native loader: the first frames of the replay scene as JPEG through the
 #: app's default mode
 LOADER_FRAMES = 30
+
+# -- the ORB options and the distributed layer ------------------------------
+#: orb_detect's two options at default OrbParams() (512 features, 8 levels)
+#: on the bench's frame and a 480x640 frame. batched against unrolled on
+#: the card: equal but for the angles, whose moment sums reduce over one
+#: level's or all K keypoints (2.4e-7 rad on the CPU); subpixel on the card
+#: against the CPU from the same pyramid: the fits read a float64 Harris
+#: surface on both, positions in px of the keypoint's level
+ORB_FRAMES = ((H, W, FOCAL), (480, 640, 500.0))
+ORB_ANGLE_ATOL = 1e-6
+ORB_SUBPIXEL_ATOL = 1e-4
+ORB_TIMING_REPS = 20
+#: the distributed solvers on the card: the sparse problem of
+#: phase_sparse_ba, a dense 8-frame x 512-point window (float32, default
+#: BAParams: 50 masked LM iterations, covariances) and the loop's keyframe
+#: skeleton (float64 graphs). One rank on NCCL must equal the ungrouped
+#: solves bitwise; two ranks on gloo, both processes on this card, within
+#: DIST_RTOL of the ungrouped solve, relative to the poses' extent
+DIST_WORLD = 2
+DIST_RTOL = 1e-4
+#: the sparse solve of phase_sparse_ba: 10 LM x 20 CG, no early stop
+DIST_SBA_PARAMS = ba_sparse.SparseBAParams(
+    max_iterations=10, cg_iterations=20, rel_decrease=0.0, lambda_max=1e30)
+DIST_TIMEOUT_S = 300
+DIST_REPS = 3
 
 #: published peaks of one H100 SXM: HBM3 bytes/s, float32 outside the
 #: tensor cores
@@ -1296,6 +1335,41 @@ def calibration_views(rng) -> np.ndarray:
     return np.stack(views)
 
 
+def calibration_probe(dev, args, K_cpu: np.ndarray) -> None:
+    """The float64 solve from call to call: CAL_PROBE_CALLS solves on the
+    card with PyTorch's default algorithms and as many with deterministic
+    algorithms asked for (warnings name the operations that have no
+    deterministic form), and two more on the CPU, each K against the first
+    CPU solve's; the digests of K let two runs of this script compare."""
+    def digest(K):
+        return hashlib.sha256(np.ascontiguousarray(K).tobytes()).hexdigest()[:12]
+
+    rows = []
+    for mode in ("default", "deterministic"):
+        torch.use_deterministic_algorithms(mode == "deterministic",
+                                           warn_only=True)
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                Ks = [calibrate_camera.calibrate_views(*args, device=dev)[0]
+                      .K.cpu().numpy() for _ in range(CAL_PROBE_CALLS)]
+        finally:
+            torch.use_deterministic_algorithms(False)
+        flagged = sorted({str(w.message).split(".")[0][:90] for w in caught
+                          if "deterministic" in str(w.message)})
+        rows.append((f"card, {mode}", Ks, flagged))
+    rows.append(("CPU", [calibrate_camera.calibrate_views(
+        *args, device="cpu")[0].K.numpy() for _ in range(2)], []))
+    for name, Ks, flagged in rows:
+        rel = [float(np.abs(K - K_cpu).max() / np.abs(K_cpu).max())
+               for K in Ks]
+        log(f"calibration probe: {name}: K against the first CPU solve "
+            f"{', '.join(f'{r:.1e}' for r in rel)}; distinct K "
+            f"{len({digest(K) for K in Ks})} of {len(Ks)} (digests "
+            f"{sorted({digest(K) for K in Ks})}; first CPU {digest(K_cpu)})"
+            + (f"; flagged as nondeterministic: {flagged}" if flagged else ""))
+
+
 def phase_calibration(dev, gpu: str, orb: features.OrbParams) -> dict:
     """A full-size calibration session on the card through the app's solve
     (float64, distortion, 60 GN iterations, undistorted 640x480 preview,
@@ -1366,6 +1440,7 @@ def phase_calibration(dev, gpu: str, orb: features.OrbParams) -> dict:
         raise AssertionError("calibration: card vs CPU beyond the limits")
     if in_solve:
         raise AssertionError(f"calibrate_planar reads on the host: {in_solve}")
+    calibration_probe(dev, args, cres.K.numpy())
 
     # one K1 pyramid launch at 480x640 on the preview, as in phase_kernel
     levels = features.pyramid(und.to(torch.float32).contiguous(), orb)
@@ -1492,6 +1567,297 @@ def phase_viewer(dev, rec, pngs, have: dict) -> None:
         f"visualizer-2d on the PNG copies: kernel launches {counts}")
 
 
+def orb_frames(dev):
+    """(name, image on ``dev``) of each frame of ORB_FRAMES."""
+    for h, w, focal in ORB_FRAMES:
+        img = render_planes_sequence(bench_trajectory(1), h=h, w=w,
+                                     focal=focal)[0]
+        yield f"{h}x{w}", torch.from_numpy(img).to(dev)
+
+
+def kernel_launches(fn) -> int:
+    """CUDA kernels one call of ``fn`` launches (torch.profiler)."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.key.startswith("cudaLaunchKernel"))
+
+
+def keyed(f, anchors) -> dict:
+    """Slot of each valid keypoint of ``f`` by (octave, level-0 integer
+    position), the positions taken from ``anchors`` (the same detector
+    without subpixel: it keeps the same slots)."""
+    xy, oc, m = (x.cpu().numpy() for x in (anchors, f.octave, f.mask))
+    return {(int(o), float(x), float(y)): i
+            for i, (o, (x, y), v) in enumerate(zip(oc, xy, m)) if v}
+
+
+def phase_orb_options(dev, gpu: str) -> dict:
+    """orb_detect's batched layout and subpixel fit on the card: one K1
+    launch per image in each, batched equal to unrolled, subpixel on the
+    card against the CPU from the same pyramid; kernel launches per call
+    and eager ms, both layouts. Returns the launches and images of the
+    paths ``orb_batched`` and ``orb_subpixel`` (each counted from 0 around
+    its calls)."""
+    base = features.OrbParams()
+    opts = {"unrolled": base, "batched": base._replace(batched=True),
+            "subpixel": base._replace(subpixel=True),
+            "batched+subpixel": base._replace(batched=True, subpixel=True)}
+    paths = {"orb_batched": "batched", "orb_subpixel": "subpixel"}
+    counts = {k: [0, 0] for k in paths}
+    failed = []
+    for fname, img in orb_frames(dev):
+        got = {}
+        for name, p in opts.items():
+            features_cuda.fast_nms_harris_rank_pyramid.launches = 0
+            got[name] = features.orb_detect(img, p)
+            n = features_cuda.fast_nms_harris_rank_pyramid.launches
+            if n != 1:
+                raise AssertionError(f"orb_detect {name} on {fname}: {n} K1 "
+                                     f"launches, not 1")
+            for path, opt in paths.items():
+                if opt == name:
+                    counts[path][0] += n
+                    counts[path][1] += 1
+        for a, b in (("unrolled", "batched"),
+                     ("subpixel", "batched+subpixel")):
+            fa, fb = got[a], got[b]
+            m = fa.mask
+            same = (torch.equal(fa.mask, fb.mask)
+                    and torch.equal(fa.octave, fb.octave)
+                    and torch.equal(fa.desc[m], fb.desc[m]))
+            dxy = float((fa.xy[m] - fb.xy[m]).abs().max())
+            dang = float((fa.angle[m] - fb.angle[m]).abs().max())
+            log(f"orb options: {fname} on {gpu}: {b} vs {a}: {int(m.sum())} "
+                f"keypoints, masks, octaves, descriptors "
+                f"{'equal' if same else 'DIFFER'}, max |dxy| {dxy:.3e} px, "
+                f"max |dangle| {dang:.3e} rad (limit {ORB_ANGLE_ATOL})")
+            if not same or dxy != 0.0 or dang > ORB_ANGLE_ATOL:
+                failed.append(f"{fname} {b} vs {a}")
+
+        # subpixel, card vs CPU from the card's pyramid
+        levels = features.pyramid(img, base)
+        cpu_levels = [lv.cpu() for lv in levels]
+        for layout, detect in (("unrolled", features._orb_detect_unrolled),
+                               ("batched", features._orb_detect_batched)):
+            p = base._replace(batched=layout == "batched")
+            card, cpu = (detect(lv, p._replace(subpixel=True))
+                         for lv in (levels, cpu_levels))
+            kc = keyed(card, detect(levels, p).xy)
+            kh = keyed(cpu, detect(cpu_levels, p).xy)
+            common = sorted(kc.keys() & kh.keys())
+            ic = [kc[k] for k in common]
+            ih = [kh[k] for k in common]
+            scale = torch.tensor([base.scale_factor ** k[0] for k in common],
+                                 dtype=torch.float64)[:, None]
+            dxy = float(((card.xy.cpu()[ic] - cpu.xy[ih]).double()
+                         / scale).abs().max())
+            ddesc = int((card.desc.cpu()[ic] != cpu.desc[ih]).any(1).sum())
+            same = (torch.equal(card.mask.cpu(), cpu.mask)
+                    and torch.equal(card.octave.cpu(), cpu.octave))
+            swapped = len(kc.keys() ^ kh.keys())
+            log(f"orb options: {fname} subpixel {layout}, card vs CPU from "
+                f"the same pyramid: masks and octaves "
+                f"{'equal' if same else 'DIFFER'}, keypoints by integer "
+                f"anchor {len(common)} common, {swapped} not, descriptors "
+                f"differing {ddesc}, max |dxy| {dxy:.3e} px of the level "
+                f"(limit {ORB_SUBPIXEL_ATOL})")
+            if not same or swapped or ddesc or dxy > ORB_SUBPIXEL_ATOL:
+                failed.append(f"{fname} subpixel {layout} card vs CPU")
+
+        # launches and eager time per call, layouts in turns
+        launches = {name: kernel_launches(lambda p=p: features.orb_detect(
+            img, p)) for name, p in opts.items()}
+        order = ["unrolled", "batched", "batched", "unrolled",
+                 "subpixel", "batched+subpixel"]
+        ms = collections.defaultdict(list)
+        for name in order:
+            ms[name].append(cuda_ms(lambda p=opts[name]: features.orb_detect(
+                img, p), ORB_TIMING_REPS, warmup=3))
+        log(f"orb options: {fname} orb_detect per call on {gpu}: "
+            + "; ".join(f"{name} {launches[name]} kernel launches, "
+                        f"{'/'.join(f'{t:.2f}' for t in ms[name])} ms eager"
+                        for name in opts)
+            + f" (CUDA events over {ORB_TIMING_REPS} calls after 3; "
+            f"unrolled, batched, batched, unrolled, then the subpixel pair)")
+    if failed:
+        raise AssertionError(f"orb options beyond the limits: {failed}")
+    return counts
+
+
+def distributed_solves(mesh, sprob, dprob, backend) -> tuple[dict, dict]:
+    """(outputs by key, ms per LM iteration by solve) of the sparse and
+    dense BA and both graphs of ``backend``'s skeleton, sharded over
+    ``mesh`` (ungrouped when None)."""
+    out, per_it = {}, {}
+    if mesh is None:
+        sba = lambda: ba_sparse.sparse_ba_solve(sprob, DIST_SBA_PARAMS)
+        dba = lambda: ba_dense.ba_solve(dprob)
+    else:
+        sba = lambda: dist_ba_sparse.distributed_sparse_ba_solve(
+            sprob, mesh, DIST_SBA_PARAMS)
+        dba = lambda: parallel.distributed_ba_solve(dprob, mesh)
+    res, ms = timed_ms(sba)
+    out.update({"sba.t": res.poses.t, "sba.points": res.points,
+                "sba.error": res.error, "sba.iterations": res.iterations})
+    per_it["sba"] = ms / int(res.iterations)
+    res, ms = timed_ms(dba)
+    out.update({"ba.t": res.poses.t, "ba.points": res.points,
+                "ba.pose_cov": res.pose_covariance,
+                "ba.iterations": res.iterations})
+    per_it["ba"] = ms / ba_dense.BAParams().max_iterations  # all run, masked
+    for method in ("sim3", "se3"):
+        opt, ms = timed_ms(lambda: backend.optimize(mesh=mesh, method=method))
+        it = int(backend.last_result.iterations)
+        out.update({f"{method}.t": opt.t, f"{method}.iterations": it})
+        per_it[method] = ms / it
+    return out, per_it
+
+
+def dist_rank(rank: int, world: int, tmp: str, device_type: str) -> None:
+    """One rank of the distributed check (a spawned process): gloo through
+    a file store, every rank on the first card, the solves of
+    phase_distributed on a mesh of ``world`` (a warm call, then the one
+    kept), outputs and ms per LM iteration to ``tmp/out{rank}.npz``."""
+    dev = torch.device(device_type, 0)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/store",
+                            rank=rank, world_size=world)
+    try:
+        d = dict(np.load(os.path.join(tmp, "inputs.npz")))
+        sub = {p: {k[len(p):]: v for k, v in d.items() if k.startswith(p)}
+               for p in ("sba.", "ba.", "skel.")}
+        args = (parallel.make_mesh(dev.type),
+                convert.sparse_ba_problem_from_numpy(sub["sba."], device=dev),
+                convert.ba_problem_from_numpy(sub["ba."], device=dev),
+                convert.backend_from_numpy(sub["skel."], device=dev))
+        distributed_solves(*args)
+        out, per_it = distributed_solves(*args)
+        out.update({f"{k}.ms_per_it": v for k, v in per_it.items()})
+        np.savez(os.path.join(tmp, f"out{rank}.npz"),
+                 **{k: np.asarray(torch.as_tensor(v).cpu())
+                    for k, v in out.items()})
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_distributed(dev, gpu: str, skel: dict) -> None:
+    """The distributed layer on the card: one rank on NCCL against the
+    ungrouped solves (bitwise), two gloo ranks on this card against them
+    (DIST_RTOL), ms per LM iteration with and without the group."""
+    sprob, _, _ = make_sequence_ba_problem(0, num_frames=256,
+                                           points_per_frame=32, window=4,
+                                           dtype=torch.float32, device=dev)
+    dprob, _, _ = make_window_ba_problem(0, num_frames=8, num_points=512,
+                                         dtype=torch.float32, device=dev)
+    backend = convert.backend_from_numpy(skel, device=dev)
+    extent = float(np.ptp(np.asarray(skel["kf_t"]), axis=0).max())
+    span = float(np.ptp(sprob.poses0.t[:, 0].cpu().numpy()))
+
+    def solves(mesh):
+        return distributed_solves(mesh, sprob, dprob, backend)
+
+    # one rank: a one-rank NCCL group formed in this process
+    mesh = parallel.make_mesh(dev.type)
+    if dist.get_backend() != "nccl" or mesh.size() != 1:
+        raise AssertionError(f"one-rank mesh on {dist.get_backend()}, "
+                             f"size {mesh.size()}")
+    solves(None)                                       # warm both paths
+    solves(mesh)
+    # index_add_ (sparse BA) sums with atomics on the card unless
+    # deterministic algorithms are asked for: the bitwise comparison asks
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        plain, _ = solves(None)
+        plain2, _ = solves(None)
+        grouped, _ = solves(mesh)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    differ = [k for k in plain
+              if not torch.equal(torch.as_tensor(plain[k]),
+                                 torch.as_tensor(grouped[k]))]
+    self_differ = [k for k in plain
+                   if not torch.equal(torch.as_tensor(plain[k]),
+                                      torch.as_tensor(plain2[k]))]
+    times = collections.defaultdict(list)
+    for m in (None, mesh, mesh, None):                 # in turns
+        for k, v in solves(m)[1].items():
+            times[(k, m is not None)].append(v)
+    dist.destroy_process_group()
+    log(f"distributed: world size 1 on NCCL on {gpu}: sparse BA "
+        f"({sprob.points0.shape[0]} landmarks, 256 frames, float32, 10 LM x "
+        f"20 CG), dense BA (8 frames x 512 points, float32, 50 masked LM "
+        f"iterations), the loop skeleton's Sim3 and SE3 graphs through "
+        f"PoseGraphBackend.optimize(mesh=...) ({len(skel['kf_t'])} "
+        f"keyframes, {len(skel['loop_j'])} loop edges): grouped vs "
+        f"ungrouped {'bitwise equal' if not differ else f'DIFFER in {differ}'}"
+        f" (deterministic algorithms on; two ungrouped runs "
+        f"{'equal' if not self_differ else f'differ in {self_differ}'})")
+    log("distributed: ms per LM iteration, without / with the one-rank "
+        "group (none, group, group, none): " + "; ".join(
+            f"{k} {'/'.join(f'{t:.2f}' for t in times[(k, False)])} / "
+            f"{'/'.join(f'{t:.2f}' for t in times[(k, True)])}"
+            for k in ("sba", "ba", "sim3", "se3")))
+    if differ:
+        raise AssertionError(f"one-rank group differs from the ungrouped "
+                             f"solve in {differ}")
+
+    # two ranks on gloo, both on this card
+    with tempfile.TemporaryDirectory() as tmp:
+        inputs = {f"sba.{k}": v for k, v in
+                  convert.problem_to_numpy(sprob).items()}
+        inputs.update({f"ba.{k}": v for k, v in
+                       convert.problem_to_numpy(dprob).items()})
+        inputs.update({f"skel.{k}": v for k, v in skel.items()})
+        np.savez(os.path.join(tmp, "inputs.npz"), **inputs)
+        ctx = mp.get_context("spawn")
+        procs = [ctx.Process(target=dist_rank,
+                             args=(r, DIST_WORLD, tmp, dev.type))
+                 for r in range(DIST_WORLD)]
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(DIST_TIMEOUT_S)
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        codes = [p.exitcode for p in procs]
+        if any(codes):
+            raise AssertionError(f"gloo ranks exited with {codes}")
+        ranks = [dict(np.load(os.path.join(tmp, f"out{r}.npz")))
+                 for r in range(DIST_WORLD)]
+    errs = {}
+    for k, scale in (("sba.t", span), ("sba.points", span), ("ba.t", 1.0),
+                     ("ba.points", 1.0), ("sim3.t", extent),
+                     ("se3.t", extent)):
+        want = torch.as_tensor(plain[k]).cpu().numpy()
+        errs[k] = max(float(np.abs(r[k] - want).max()) for r in ranks) / scale
+    same_ranks = all(np.array_equal(ranks[0][k], r[k])
+                     for r in ranks[1:] for k in ranks[0]
+                     if not k.endswith("ms_per_it"))
+    its = {k: [int(r[f"{k}.iterations"]) for r in ranks]
+           for k in ("sba", "ba", "sim3", "se3")}
+    log(f"distributed: world size {DIST_WORLD} on gloo, both ranks on "
+        f"{gpu}: ranks {'identical' if same_ranks else 'DIFFER'}, LM "
+        f"iterations by rank {its} (ungrouped "
+        f"{ {k: int(torch.as_tensor(plain[k + '.iterations'])) for k in its} }"
+        f"), against the ungrouped solve relative to the extent (sparse "
+        f"poses' span {span:.1f}, dense 1, skeleton {extent:.2f}): "
+        + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+        + f" (limit {DIST_RTOL}); ms per LM iteration by rank: "
+        + "; ".join(f"{k} {[round(float(r[k + '.ms_per_it']), 2) for r in ranks]}"
+                    for k in ("sba", "ba", "sim3", "se3")))
+    if (not same_ranks or any(len(set(v)) != 1 for v in its.values())
+            or any(v > DIST_RTOL for v in errs.values())):
+        raise AssertionError("two gloo ranks beyond the limits")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() "
@@ -1514,6 +1880,7 @@ def main() -> int:
     launches, frames, _ = phase_main(dev, params, card)
     recorded, slam_launches = phase_slam(card)
     phase_slam_parity(dev, recorded)
+    skeleton = convert.backend_to_numpy(recorded)
     del recorded
     phase_sparse_ba(dev, card)
     host_launches = phase_host_vo(card)
@@ -1522,6 +1889,8 @@ def main() -> int:
     k1.update(phase_calibration(dev, card, params.orb))
     loader_launches = phase_native_loader(dev, card, have)
     phase_viewer(dev, rec, pngs, have)
+    orb_paths = phase_orb_options(dev, card)
+    phase_distributed(dev, card, skeleton)
 
     # each path was driven with the count set to 0 just before it and read
     # just after; no single PyTorch call computes the corner front: no
@@ -1531,7 +1900,8 @@ def main() -> int:
                "host_vo": (host_launches, HOST_VO_FRAMES),
                "reconstruct": (rec_launches, len(REC_FRAMES)),
                "native_loader_app": (
-                   loader_launches, LOADER_FRAMES if loader_launches else 0)}
+                   loader_launches, LOADER_FRAMES if loader_launches else 0),
+               **{k: tuple(v) for k, v in orb_paths.items()}}
     total = sum(n for n, _ in by_path.values())
     log(json.dumps({"kernels": [{
         "name": "fast_nms_harris_rank", "route": "cuda",

@@ -1,7 +1,7 @@
 """mvslam_tpu_torch — the PyTorch/CUDA port of ``mvslam_tpu``.
 
-Every module of the JAX package but its distributed layer, mirrored path
-for path:
+Every module of the JAX package, mirrored path for path (its Pallas
+kernel module becomes ``ops/features_cuda.py`` with a CUDA source):
 
 - ``mvslam_tpu_torch.math``     — SO3/SE3 Lie groups, small-matrix linalg,
   Kalman filtering, signal processing, state estimates.
@@ -13,7 +13,10 @@ for path:
   host-orchestrated front end (``FrameManager`` -> ``VisualOdometer``).
 - ``mvslam_tpu_torch.backend``  — SE3 and Sim3 pose graphs, the host-side
   ``Graph``, the keyframe / loop-closure back-end ``PoseGraphBackend``.
-- ``mvslam_tpu_torch.parallel`` — synthetic BA problem generators.
+- ``mvslam_tpu_torch.parallel`` — the distributed layer on
+  ``torch.distributed`` (device meshes, landmark-sharded dense and sparse
+  BA, edge-sharded pose graphs, multi-process ``(dcn, ici)`` meshes) and
+  synthetic BA problem generators.
 - ``mvslam_tpu_torch.apps``     — the command-line apps: ``visual_odometer``,
   ``reconstruct_scene``, ``calibrate_camera``, ``demos``, ``video_capture``.
 - ``mvslam_tpu_torch.io``       — images, manifests, checkpoints, the native

@@ -1,5 +1,5 @@
 """Pose-graph optimization: the functional compute core (port of
-``mvslam_tpu.backend.pose_graph``, single device).
+``mvslam_tpu.backend.pose_graph``).
 
 A graph of SE3 pose nodes, SE3-with-covariance between-factor edges and
 tightly anchored nodes, optimized by Levenberg-Marquardt. Fixed-capacity
@@ -16,6 +16,13 @@ float64 the order of the scatter-adds does not show at any tolerance used.
 The LM loop is a Python loop with one host read (the ``converged`` flag)
 per iteration, at most ``max_iterations`` per call.
 
+With a process ``group`` (the JAX ``axis_name``), each rank holds a block
+of the edges and every node: the dense system and the edge cost are summed
+over the group, then priors and pins are added once, so every rank solves
+the same system and leaves the loop at the same iteration
+(``parallel/dist_pose_graph.py``). The sums run outside the forward-mode
+Jacobians.
+
 The host-side ``Graph`` / ``GraphOptimizer`` wrapper lives in
 ``mvslam_tpu_torch.backend.graph``.
 """
@@ -28,6 +35,7 @@ import torch
 
 from mvslam_tpu_torch.math import linalg
 from mvslam_tpu_torch.math.lie import SE3
+from mvslam_tpu_torch.ops.ba import psum
 
 Tensor = torch.Tensor
 
@@ -121,8 +129,8 @@ def _prior_residuals(data: PoseGraphData) -> Tensor:
     return data.prior_pose.inverse().compose(data.poses).log()
 
 
-def pose_graph_cost(data: PoseGraphData) -> Tensor:
-    """Total cost: masked edge terms plus priors."""
+def pose_graph_cost(data: PoseGraphData, group=None) -> Tensor:
+    """Total cost: masked edge terms (summed over ``group``) plus priors."""
     r = _edge_residuals(data)
     w = data.edge_mask.to(r.dtype)
     c_edges = 0.5 * torch.sum(
@@ -130,7 +138,7 @@ def pose_graph_cost(data: PoseGraphData) -> Tensor:
     rp = _prior_residuals(data)
     c_prior = 0.5 * torch.sum(
         torch.einsum("ni,nij,nj->n", rp, data.prior_info, rp))
-    return c_edges + c_prior
+    return psum(c_edges, group) + c_prior
 
 
 def _scatter_blocks(N: int, src: Tensor, dst: Tensor, Hss, Hsd, Hdd, bs, bd):
@@ -160,8 +168,9 @@ def _add_priors_and_pins(H: Tensor, b: Tensor, prior_info: Tensor,
     return H, b
 
 
-def _normal_equations(data: PoseGraphData):
-    """Dense (N, N, 6, 6) H and (N, 6) b by scatter-add over the edges."""
+def _normal_equations(data: PoseGraphData, group=None):
+    """Dense (N, N, 6, 6) H and (N, 6) b by scatter-add over the edges,
+    summed over ``group``, then priors and pins."""
     N = data.poses.t.shape[0]
     r, Js, Jd = _edge_residuals_and_jacobians(data)
     w = data.edge_mask.to(r.dtype)
@@ -172,8 +181,9 @@ def _normal_equations(data: PoseGraphData):
         N, data.edge_src, data.edge_dst, JsTL @ Js, JsTL @ Jd, JdTL @ Jd,
         -torch.einsum("eil,el->ei", JsTL, r),
         -torch.einsum("eil,el->ei", JdTL, r))
-    return _add_priors_and_pins(H, b, data.prior_info,
-                                _prior_residuals(data), data.node_mask)
+    return _add_priors_and_pins(psum(H, group), psum(b, group),
+                                data.prior_info, _prior_residuals(data),
+                                data.node_mask)
 
 
 def lm_optimize(poses, node_mask: Tensor, params, normal_equations, cost_fn,
@@ -221,12 +231,15 @@ def lm_optimize(poses, node_mask: Tensor, params, normal_equations, cost_fn,
 def pose_graph_optimize(
     data: PoseGraphData,
     params: PoseGraphParams = PoseGraphParams(),
+    group=None,
 ) -> PoseGraphResult:
-    """LM over the whole graph."""
+    """LM over the whole graph. ``group``: a ``torch.distributed`` process
+    group whose ranks each hold a block of the edges and all nodes; every
+    rank must call, and all return the same result."""
     poses, cost, it, done = lm_optimize(
         data.poses, data.node_mask, params,
-        lambda p: _normal_equations(data._replace(poses=p)),
-        lambda p: pose_graph_cost(data._replace(poses=p)),
+        lambda p: _normal_equations(data._replace(poses=p), group),
+        lambda p: pose_graph_cost(data._replace(poses=p), group),
         lambda p, delta: p.compose(SE3.exp(delta)))
     return PoseGraphResult(poses=poses, error=cost, iterations=it,
                            converged=done)

@@ -1,5 +1,5 @@
 """Scale-drift-aware (Sim3) pose-graph optimization for monocular loops
-(port of ``mvslam_tpu.backend.sim3_graph``, single device).
+(port of ``mvslam_tpu.backend.sim3_graph``).
 
 Monocular odometry drifts in scale as well as pose. An SE3 pose graph
 cannot represent that: metric loop-closure edges and scale-drifted odometry
@@ -11,7 +11,8 @@ and the loop's scale inconsistency distributes smoothly around the cycle.
 Same shape as ``backend/pose_graph.py``: fixed-capacity tensors, all-edge
 batched residuals, exact Jacobians by ``torch.func.vmap`` of
 ``torch.func.jacfwd`` of a 7-dof chart retraction, dense 7N x 7N normal
-equations, the shared LM loop.
+equations, the shared LM loop, and the same edge sharding over a process
+``group``.
 
 The residual uses the chart ``(nu, omega, lambda)`` with retraction
 ``T . (nu, exp(omega), e^lambda)`` and error decomposition
@@ -31,6 +32,7 @@ from mvslam_tpu_torch.backend.pose_graph import (
     _add_priors_and_pins, _scatter_blocks, lm_optimize,
 )
 from mvslam_tpu_torch.math.lie import _matvec, so3_exp, so3_log
+from mvslam_tpu_torch.ops.ba import psum
 
 Tensor = torch.Tensor
 
@@ -162,7 +164,7 @@ def _huber_rho_and_weight(e2: Tensor, delta: float | None):
 
 
 def sim3_graph_cost(data: Sim3GraphData,
-                    huber_delta: float | None = None) -> Tensor:
+                    huber_delta: float | None = None, group=None) -> Tensor:
     r = _edge_residuals(data)
     w = data.edge_mask.to(r.dtype)
     e2 = torch.einsum("ei,eij,ej->e", r, data.edge_info, r)
@@ -171,10 +173,11 @@ def sim3_graph_cost(data: Sim3GraphData,
     rp = _prior_residuals(data)
     c_prior = 0.5 * torch.sum(
         torch.einsum("ni,nij,nj->n", rp, data.prior_info, rp))
-    return c_edges + c_prior
+    return psum(c_edges, group) + c_prior
 
 
-def _normal_equations(data: Sim3GraphData, huber_delta: float | None = None):
+def _normal_equations(data: Sim3GraphData, huber_delta: float | None = None,
+                      group=None):
     N = data.poses.t.shape[0]
     r, Js, Jd = _edge_residuals_and_jacobians(data)
     e2 = torch.einsum("ei,eij,ej->e", r, data.edge_info, r)
@@ -187,20 +190,23 @@ def _normal_equations(data: Sim3GraphData, huber_delta: float | None = None):
         N, data.edge_src, data.edge_dst, JsTL @ Js, JsTL @ Jd, JdTL @ Jd,
         -torch.einsum("eil,el->ei", JsTL, r),
         -torch.einsum("eil,el->ei", JdTL, r))
-    return _add_priors_and_pins(H, b, data.prior_info,
-                                _prior_residuals(data), data.node_mask)
+    return _add_priors_and_pins(psum(H, group), psum(b, group),
+                                data.prior_info, _prior_residuals(data),
+                                data.node_mask)
 
 
 def sim3_graph_optimize(
     data: Sim3GraphData,
     params: Sim3GraphParams = Sim3GraphParams(),
+    group=None,
 ) -> Sim3GraphResult:
-    """LM over Sim3 nodes."""
+    """LM over Sim3 nodes; ``group`` as in
+    :func:`mvslam_tpu_torch.backend.pose_graph.pose_graph_optimize`."""
     hd = params.huber_delta
     poses, cost, it, done = lm_optimize(
         data.poses, data.node_mask, params,
-        lambda p: _normal_equations(data._replace(poses=p), hd),
-        lambda p: sim3_graph_cost(data._replace(poses=p), hd),
+        lambda p: _normal_equations(data._replace(poses=p), hd, group),
+        lambda p: sim3_graph_cost(data._replace(poses=p), hd, group),
         Sim3.retract)
     return Sim3GraphResult(poses=poses, error=cost, iterations=it,
                            converged=done)

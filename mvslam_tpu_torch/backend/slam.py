@@ -458,20 +458,31 @@ class PoseGraphBackend:
         ``method="sim3"`` (default) runs the scale-drift-aware Sim3 graph
         (``backend/sim3_graph.py``): monocular odometry drifts in scale,
         which an SE3 graph cannot absorb (it trades endpoint error for
-        mid-trajectory warp). ``method="se3"`` runs the SE3 graph. Sharding
-        the edges over a ``mesh`` is not ported yet.
+        mid-trajectory warp). ``method="se3"`` runs the SE3 graph.
+
+        With a ``mesh`` (a ``DeviceMesh`` of ``parallel.make_mesh``), the
+        edges are sharded over its data axis
+        (``parallel.dist_pose_graph``). The call is then collective: every
+        rank of the mesh calls it with the same skeleton, and all get the
+        same poses.
         """
-        if mesh is not None:
-            raise NotImplementedError(
-                "optimize(mesh=...) waits for the distributed solvers "
-                "(ROADMAP S14); pass mesh=None")
+        from mvslam_tpu_torch.parallel import dist_pose_graph
+
         if method == "se3":
             g, _ = self.build_graph()
-            res = pg.pose_graph_optimize(g.to_data(),
-                                         params or pg.PoseGraphParams())
+            data, params = g.to_data(), params or pg.PoseGraphParams()
+            if mesh is None:
+                res = pg.pose_graph_optimize(data, params)
+            else:
+                res = dist_pose_graph.distributed_pose_graph_optimize(
+                    data, mesh, params)
         else:
-            res = sg.sim3_graph_optimize(self._build_sim3_data(),
-                                         params or sg.Sim3GraphParams())
+            data, params = self._build_sim3_data(), params or sg.Sim3GraphParams()
+            if mesh is None:
+                res = sg.sim3_graph_optimize(data, params)
+            else:
+                res = dist_pose_graph.distributed_sim3_graph_optimize(
+                    data, mesh, params)
         self.last_result = res
         # Sim3 -> SE3: the node scale models the tracker's local metric
         # distortion; the trajectory estimate is (R, t) directly

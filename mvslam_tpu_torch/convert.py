@@ -27,6 +27,7 @@ from mvslam_tpu_torch.frontend.data_types import Frame
 from mvslam_tpu_torch.frontend.visual_odometer import VisualOdometer, VoState
 from mvslam_tpu_torch.frontend.vo_jit import VoJitState, VoStepOut
 from mvslam_tpu_torch.math.lie import SE3
+from mvslam_tpu_torch.ops.ba import BAProblem
 from mvslam_tpu_torch.ops.ba_sparse import SparseBAProblem
 from mvslam_tpu_torch.ops.calibration import CalibrationResult
 from mvslam_tpu_torch.ops.camera import PinholeCamera
@@ -115,6 +116,7 @@ def step_out_from_numpy(d: dict, device="cuda",
 
 #: the transform-valued fields of each problem type
 _NESTED = {
+    BAProblem: {"poses0": SE3, "pose_prior": SE3},
     SparseBAProblem: {"poses0": SE3, "pose_prior": SE3},
     PoseGraphData: {"poses": SE3, "edge_rel": SE3, "prior_pose": SE3},
     Sim3GraphData: {"poses": Sim3, "edge_rel": Sim3, "prior_pose": Sim3},
@@ -122,7 +124,7 @@ _NESTED = {
 
 
 def problem_to_numpy(prob) -> dict:
-    """A problem tuple (this package's or the JAX package's
+    """A problem tuple (this package's or the JAX package's ``BAProblem`` /
     ``SparseBAProblem`` / ``PoseGraphData`` / ``Sim3GraphData``) as a flat
     dict of numpy arrays, transforms under dotted keys (``poses0.R``)."""
     out = {}
@@ -145,6 +147,10 @@ def _problem_from_numpy(cls, d: dict, device, dtype):
             fields[name] = sub(*(_tensor(d[f"{name}.{k}"], device, dtype)
                                  for k in sub._fields))
     return cls(**fields)
+
+
+def ba_problem_from_numpy(d: dict, device="cuda", dtype=None) -> BAProblem:
+    return _problem_from_numpy(BAProblem, d, device, dtype)
 
 
 def sparse_ba_problem_from_numpy(d: dict, device="cuda",

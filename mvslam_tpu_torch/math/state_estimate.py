@@ -20,8 +20,10 @@ class StateEstimate(NamedTuple):
     covar: Tensor
 
     def info(self) -> Tensor:
-        """Information matrix (inverse covariance), batched."""
-        return torch.linalg.inv(self.covar)
+        """Information matrix (inverse covariance), batched. A singular
+        covariance gives non-finite entries, as ``jnp.linalg.inv`` does; the
+        unchecked inverse reads no error flag back to the host."""
+        return torch.linalg.inv_ex(self.covar).inverse
 
 
 class TransformationEstimate(NamedTuple):
@@ -32,7 +34,7 @@ class TransformationEstimate(NamedTuple):
     covar: Tensor               # (..., 6, 6)
 
     def info(self) -> Tensor:
-        return torch.linalg.inv(self.covar)
+        return torch.linalg.inv_ex(self.covar).inverse
 
 
 def _isotropic(mean: Tensor, n: int, stddev: float | None) -> Tensor:

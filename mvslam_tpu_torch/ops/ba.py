@@ -1,5 +1,5 @@
 """Levenberg-Marquardt bundle adjustment with landmark Schur complement
-(port of ``mvslam_tpu.ops.ba``, single device).
+(port of ``mvslam_tpu.ops.ba``).
 
 Dense, statically-shaped problem: F camera-to-world poses, P points,
 (F, P, 2) ideal-plane observations with mask and 1/sigma weights, and
@@ -10,6 +10,13 @@ equations analytically, eliminates the landmarks with batched closed-form
 The JAX ``while_loop`` with an early stop becomes ``max_iterations``
 iterations in which every carried value is frozen by ``torch.where`` once
 ``done`` is set — the same result with no host read.
+
+With a process ``group`` (the JAX ``axis_name``), each rank holds a
+contiguous block of the landmarks and the same poses: the pose blocks of
+the normal equations, the reduced camera system and the cost's landmark
+terms are summed over the group (:func:`psum`), every rank solves the same
+camera system, and pose priors are added once, after the sums
+(``parallel/dist_ba.py``).
 """
 
 from __future__ import annotations
@@ -17,6 +24,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from mvslam_tpu_torch.math import linalg
 from mvslam_tpu_torch.math.lie import SE3, skew
@@ -135,9 +143,22 @@ def _prior_residuals(poses: SE3, points: Tensor, prob: BAProblem):
     return r_pose, points - prob.point_prior
 
 
+def psum(x: Tensor, group=None) -> Tensor:
+    """``x`` summed over the ranks of the process ``group`` (every rank gets
+    the sum, the JAX ``psum``); ``x`` itself when ``group`` is None. The
+    reduce works on a contiguous copy."""
+    if group is None:
+        return x
+    y = torch.clone(x, memory_format=torch.contiguous_format)
+    dist.all_reduce(y, op=dist.ReduceOp.SUM, group=group)
+    return y
+
+
 def _cost(poses: SE3, points: Tensor, prob: BAProblem,
-          huber_delta: float | None = None) -> Tensor:
-    """Total cost: 0.5 |r|^2 (or Huber rho) + prior terms."""
+          huber_delta: float | None = None, group=None) -> Tensor:
+    """Total cost: 0.5 |r|^2 (or Huber rho) + prior terms. Under a group the
+    observation and point-prior terms are summed over it; the pose prior
+    (the same on every rank) is added once."""
     r, _, _ = _projection_residuals(poses, points, prob)
     rp, rx = _prior_residuals(poses, points, prob)
     if huber_delta is None:
@@ -151,18 +172,20 @@ def _cost(poses: SE3, points: Tensor, prob: BAProblem,
         rx * torch.einsum("pij,pj->pi", prob.point_prior_info, rx))
     c_pose = 0.5 * torch.sum(
         rp * torch.einsum("fij,fj->fi", prob.pose_prior_info, rp))
-    return (c_obs + c_point) + c_pose
+    return psum(c_obs + c_point, group) + c_pose
 
 
 def _normal_equations(poses: SE3, points: Tensor, prob: BAProblem,
-                      huber_delta: float | None = None):
+                      huber_delta: float | None = None, group=None):
     """(Hcc (F,6,6), Hpp (P,3,3), Hcp (F,P,6,3), bc (F,6), bp (P,3)),
-    ``b = -J^T r``, priors included."""
+    ``b = -J^T r``, priors included. Under a group, Hcc and bc are summed
+    over it before the pose priors are added; the landmark blocks stay
+    local."""
     r, Jc, Jp = _projection_residuals(poses, points, prob, huber_delta)
-    Hcc = torch.einsum("fpki,fpkj->fij", Jc, Jc)
+    Hcc = psum(torch.einsum("fpki,fpkj->fij", Jc, Jc), group)
     Hpp = torch.einsum("fpki,fpkj->pij", Jp, Jp)
     Hcp = torch.einsum("fpki,fpkj->fpij", Jc, Jp)
-    bc = -torch.einsum("fpki,fpk->fi", Jc, r)
+    bc = psum(-torch.einsum("fpki,fpk->fi", Jc, r), group)
     bp = -torch.einsum("fpki,fpk->pi", Jp, r)
     rp, rx = _prior_residuals(poses, points, prob)
     Hcc = Hcc + prob.pose_prior_info
@@ -172,9 +195,10 @@ def _normal_equations(poses: SE3, points: Tensor, prob: BAProblem,
     return Hcc, Hpp, Hcp, bc, bp
 
 
-def _schur_solve(Hcc, Hpp, Hcp, bc, bp, lam, dtype):
+def _schur_solve(Hcc, Hpp, Hcp, bc, bp, lam, dtype, group=None):
     """Damped Schur-complement solve -> (delta_c (F,6), delta_p (P,3),
-    S_flat, Hpp_inv, W)."""
+    S_flat, Hpp_inv, W). Under a group the landmark terms of the reduced
+    camera system and its right-hand side are summed over it."""
     F = Hcc.shape[0]
     dev = Hcc.device
     eye6 = torch.eye(6, dtype=dtype, device=dev)
@@ -182,10 +206,10 @@ def _schur_solve(Hcc, Hpp, Hcp, bc, bp, lam, dtype):
     Hcc_d = Hcc + lam * eye6[None]
     Hpp_inv = linalg.inv3x3(Hpp + lam * eye3[None])
     W = torch.einsum("fpij,pjk->fpik", Hcp, Hpp_inv)
-    S = -torch.einsum("fpik,gpjk->fgij", W, Hcp)
+    S = -psum(torch.einsum("fpik,gpjk->fgij", W, Hcp), group)
     ar = torch.arange(F, device=dev)
     S[ar, ar] = S[ar, ar] + Hcc_d
-    rhs = bc - torch.einsum("fpik,pk->fi", W, bp)
+    rhs = bc - psum(torch.einsum("fpik,pk->fi", W, bp), group)
     S_flat = S.permute(0, 2, 1, 3).reshape(6 * F, 6 * F)
     rhs_flat = rhs.reshape(6 * F)
     jitter = torch.finfo(dtype).eps * (
@@ -205,26 +229,34 @@ def _retract(poses: SE3, points: Tensor, delta_c: Tensor, delta_p: Tensor):
     return poses.compose(SE3.exp(delta_c)), points + delta_p
 
 
-def ba_solve(prob: BAProblem, params: BAParams = BAParams()) -> BAResult:
+def ba_solve(prob: BAProblem, params: BAParams = BAParams(),
+             group=None) -> BAResult:
     """LM bundle adjustment: ``max_iterations`` masked iterations, frozen
-    once converged (the JAX early stop, without a host read)."""
+    once converged (the JAX early stop, without a host read).
+
+    ``group``: a ``torch.distributed`` process group whose ranks each hold
+    one block of the landmarks of ``prob`` and the same poses and pose
+    priors (``parallel.dist_ba.distributed_ba_solve``); every rank must
+    call with its block. Every rank runs the same iterations and returns
+    the same poses, its own block's points."""
     dtype = prob.points0.dtype
     dev = prob.points0.device
     eps = torch.finfo(dtype).eps
 
     R, t, points = prob.poses0.R, prob.poses0.t, prob.points0
     lam = torch.full((), params.lambda_init, dtype=dtype, device=dev)
-    cost = _cost(prob.poses0, points, prob, params.huber_delta)
+    cost = _cost(prob.poses0, points, prob, params.huber_delta, group)
     it = torch.zeros((), dtype=torch.int32, device=dev)
     done = torch.zeros((), dtype=torch.bool, device=dev)
     for _ in range(params.max_iterations):
         poses = SE3(R, t)
         Hcc, Hpp, Hcp, bc, bp = _normal_equations(poses, points, prob,
-                                                  params.huber_delta)
+                                                  params.huber_delta, group)
         delta_c, delta_p, _, _, _ = _schur_solve(Hcc, Hpp, Hcp, bc, bp, lam,
-                                                 dtype)
+                                                 dtype, group)
         new_poses, new_points = _retract(poses, points, delta_c, delta_p)
-        new_cost = _cost(new_poses, new_points, prob, params.huber_delta)
+        new_cost = _cost(new_poses, new_points, prob, params.huber_delta,
+                         group)
         accept = torch.isfinite(new_cost) & (new_cost < cost)
         new_lam = torch.clamp(
             torch.where(accept, lam * params.lambda_down,
@@ -248,18 +280,19 @@ def ba_solve(prob: BAProblem, params: BAParams = BAParams()) -> BAResult:
 
     point_info = None
     if params.compute_point_info and not params.compute_covariance:
-        _, point_info, _, _, _ = _normal_equations(poses, points, prob)
+        _, point_info, _, _, _ = _normal_equations(poses, points, prob,
+                                                   group=group)
 
     F = prob.poses0.R.shape[0]
     P = points.shape[0]
     if params.compute_covariance:
         Hcc, Hpp, Hcp, bc, bp = _normal_equations(poses, points, prob,
-                                                  params.huber_delta)
+                                                  params.huber_delta, group)
         if params.compute_point_info:
             point_info = Hpp
         zero = torch.zeros((), dtype=dtype, device=dev)
         _, _, S_flat, Hpp_inv, W = _schur_solve(Hcc, Hpp, Hcp, bc, bp, zero,
-                                                dtype)
+                                                dtype, group)
         jitter = eps * (1.0 + torch.max(torch.abs(torch.diagonal(S_flat))))
         Sigma_cc = linalg.inv_psd(
             S_flat + jitter * torch.eye(6 * F, dtype=dtype, device=dev))

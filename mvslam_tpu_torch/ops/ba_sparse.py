@@ -1,5 +1,5 @@
 """Sparse (fixed-degree) bundle adjustment for large maps (port of
-``mvslam_tpu.ops.ba_sparse``, single device).
+``mvslam_tpu.ops.ba_sparse``).
 
 The dense :mod:`mvslam_tpu_torch.ops.ba` materializes an (F, P) observation
 grid and a dense 6F x 6F reduced camera system: right for the two-frame
@@ -19,6 +19,14 @@ tracking BA, unrepresentable for long keyframe sequences. Here:
 
 The LM loop is a Python loop that reads the ``converged`` flag once per
 iteration (the JAX ``while_loop`` condition).
+
+With a process ``group`` (the JAX ``axis_name``), each rank holds a
+contiguous block of the landmarks (a time block of the sequence) and the
+same poses; the camera blocks, the reduced right-hand side, every CG
+application of the reduced system and the cost's landmark terms are
+summed over the group (``parallel/dist_ba_sparse.py``). The ``converged``
+flag is computed from summed values only, so every rank leaves the loop at
+the same iteration.
 """
 
 from __future__ import annotations
@@ -30,6 +38,7 @@ import torch
 from mvslam_tpu_torch.math import linalg
 from mvslam_tpu_torch.math.lie import SE3, skew
 from mvslam_tpu_torch.ops import ba as ba_mod
+from mvslam_tpu_torch.ops.ba import psum
 
 Tensor = torch.Tensor
 
@@ -131,7 +140,8 @@ def _residuals(poses: SE3, points: Tensor, prob: SparseBAProblem):
     return r, Jc, Jp
 
 
-def _cost(poses: SE3, points: Tensor, prob: SparseBAProblem) -> Tensor:
+def _cost(poses: SE3, points: Tensor, prob: SparseBAProblem,
+          group=None) -> Tensor:
     r, _, _ = _residuals(poses, points, prob)
     rx = points - prob.point_prior
     rp = prob.pose_prior.inverse().compose(poses).log()
@@ -139,7 +149,7 @@ def _cost(poses: SE3, points: Tensor, prob: SparseBAProblem) -> Tensor:
         rx * torch.einsum("pij,pj->pi", prob.point_prior_info, rx))
     c_pose = 0.5 * torch.sum(
         rp * torch.einsum("fij,fj->fi", prob.pose_prior_info, rp))
-    return c_local + c_pose
+    return psum(c_local, group) + c_pose
 
 
 def _segment6(x: Tensor, seg: Tensor, F: int) -> Tensor:
@@ -158,7 +168,7 @@ class _Assembled(NamedTuple):
 
 
 def _assemble(poses: SE3, points: Tensor, prob: SparseBAProblem,
-              lam) -> _Assembled:
+              lam, group=None) -> _Assembled:
     dtype, dev = points.dtype, points.device
     F = prob.num_frames
     P, D = prob.obs_frame.shape
@@ -166,10 +176,10 @@ def _assemble(poses: SE3, points: Tensor, prob: SparseBAProblem,
     seg = prob.obs_frame.reshape(P * D)
     # camera blocks: scatter-add per observation into the (F, 6, 6) diagonal
     HccO = torch.einsum("pdki,pdkj->pdij", Jc, Jc).reshape(P * D, 6, 6)
-    Hcc = _segment6(HccO, seg, F) + prob.pose_prior_info
+    Hcc = psum(_segment6(HccO, seg, F), group) + prob.pose_prior_info
     bcO = -torch.einsum("pdki,pdk->pdi", Jc, r).reshape(P * D, 6)
     rp = prob.pose_prior.inverse().compose(poses).log()
-    bc = _segment6(bcO, seg, F) - torch.einsum(
+    bc = psum(_segment6(bcO, seg, F), group) - torch.einsum(
         "fij,fj->fi", prob.pose_prior_info, rp)
     # landmark blocks
     Hpp = torch.einsum("pdki,pdkj->pij", Jp, Jp) + prob.point_prior_info
@@ -182,22 +192,22 @@ def _assemble(poses: SE3, points: Tensor, prob: SparseBAProblem,
     return _Assembled(Hcc_d, Hpp_inv, A, bc, bp, seg)
 
 
-def _schur_matvec(asm: _Assembled, x: Tensor, F: int) -> Tensor:
+def _schur_matvec(asm: _Assembled, x: Tensor, F: int, group=None) -> Tensor:
     """Apply the reduced camera system ``S x`` without materializing S:
     ``S x = Hcc_d x - sum_p A_p Hpp_inv_p A_p^T x`` where ``A_p^T x``
     gathers x rows by each observation's frame and the outer product
-    scatters back."""
+    scatters back. One sum over the group per application."""
     P, D = asm.A.shape[:2]
     xg = x[asm.seg.reshape(P, D)]                        # (P, D, 6)
     y = torch.einsum("pdij,pdi->pj", asm.A, xg)          # (P, 3)
     z = torch.einsum("pij,pj->pi", asm.Hpp_inv, y)       # (P, 3)
     wback = torch.einsum("pdij,pj->pdi", asm.A, z)       # (P, D, 6)
-    coupling = _segment6(wback.reshape(P * D, 6), asm.seg, F)
+    coupling = psum(_segment6(wback.reshape(P * D, 6), asm.seg, F), group)
     return torch.einsum("fij,fj->fi", asm.Hcc, x) - coupling
 
 
 def _pcg(asm: _Assembled, rhs: Tensor, F: int,
-         params: SparseBAParams) -> Tensor:
+         params: SparseBAParams, group=None) -> Tensor:
     """Block-Jacobi preconditioned CG on the reduced camera system: a fixed
     iteration count; iterations past convergence are frozen with a
     where-mask on the relative residual."""
@@ -219,7 +229,7 @@ def _pcg(asm: _Assembled, rhs: Tensor, F: int,
     tol2 = (params.cg_tol * r0) ** 2
     for _ in range(params.cg_iterations):
         live = torch.sum(r * r) > tol2
-        Sp = _schur_matvec(asm, p, F)
+        Sp = _schur_matvec(asm, p, F, group)
         denom = torch.sum(p * Sp)
         alpha = torch.where(torch.abs(denom) > 0, rz / denom, zero)
         alpha = torch.where(live & torch.isfinite(alpha), alpha, zero)
@@ -236,10 +246,15 @@ def _pcg(asm: _Assembled, rhs: Tensor, F: int,
 
 
 def sparse_ba_solve(prob: SparseBAProblem,
-                    params: SparseBAParams = SparseBAParams()
-                    ) -> SparseBAResult:
+                    params: SparseBAParams = SparseBAParams(),
+                    group=None) -> SparseBAResult:
     """LM with inexact (PCG) Schur steps over fixed-degree observations.
-    One host read per LM iteration (the ``converged`` flag)."""
+    One host read per LM iteration (the ``converged`` flag).
+
+    ``group``: a ``torch.distributed`` process group whose ranks each hold
+    one block of the landmarks of ``prob`` and the same poses and pose
+    priors; every rank must call with its block, and all return the same
+    poses, cost and iteration count, each its own block's points."""
     dtype, dev = prob.points0.dtype, prob.points0.device
     F = prob.num_frames
     P, D = prob.obs_frame.shape
@@ -247,23 +262,24 @@ def sparse_ba_solve(prob: SparseBAProblem,
 
     R, t, points = prob.poses0.R, prob.poses0.t, prob.points0
     lam = torch.full((), params.lambda_init, dtype=dtype, device=dev)
-    cost = _cost(prob.poses0, points, prob)
+    cost = _cost(prob.poses0, points, prob, group)
     it, done = 0, False
     while it < params.max_iterations and not done:
         poses = SE3(R, t)
-        asm = _assemble(poses, points, prob, lam)
+        asm = _assemble(poses, points, prob, lam, group)
         # reduced (Schur) RHS: bc - W Hpp^-1 bp, scattered by frame
         yb = torch.einsum("pij,pj->pi", asm.Hpp_inv, asm.bp)     # (P, 3)
         red = torch.einsum("pdij,pj->pdi", asm.A, yb)            # (P, D, 6)
-        rhs = asm.bc - _segment6(red.reshape(P * D, 6), asm.seg, F)
-        delta_c = _pcg(asm, rhs, F, params)
+        rhs = asm.bc - psum(_segment6(red.reshape(P * D, 6), asm.seg, F),
+                            group)
+        delta_c = _pcg(asm, rhs, F, params, group)
         # landmark back-substitution
         xg = delta_c[asm.seg.reshape(P, D)]
         rhs_p = asm.bp - torch.einsum("pdij,pdi->pj", asm.A, xg)
         delta_p = torch.einsum("pij,pj->pi", asm.Hpp_inv, rhs_p)
         new_poses = poses.compose(SE3.exp(delta_c))
         new_points = points + delta_p
-        new_cost = _cost(new_poses, new_points, prob)
+        new_cost = _cost(new_poses, new_points, prob, group)
         accept = torch.isfinite(new_cost) & (new_cost < cost)
         lam = torch.clamp(
             torch.where(accept, lam * params.lambda_down,

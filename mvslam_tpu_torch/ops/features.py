@@ -1,14 +1,17 @@
 """ORB-style feature detection + description (port of
-``mvslam_tpu.ops.features``, per-level unrolled layout).
+``mvslam_tpu.ops.features``).
 
 The scale pyramid is built first; the dense corner front (FAST-9/16
 max-margin score, strict 3x3 NMS, border suppression, Harris rank) of all
-its levels then runs through one call of
-:func:`mvslam_tpu_torch.ops.features_cuda.fast_nms_harris_rank_pyramid` —
-one launch of the hand-written CUDA kernel on the card, the plain
-composition per level on the CPU — and each level takes a stable top-k, a
-patch gather, intensity-centroid orientation and 256-bit rBRIEF
-descriptors.
+its levels then runs through one call of the corner kernel
+(:mod:`mvslam_tpu_torch.ops.features_cuda`) — one launch of the
+hand-written CUDA kernel on the card, the plain composition per level on
+the CPU — in both layouts of ``OrbParams.batched``. The per-keypoint half
+(stable top-k, patch gather, intensity-centroid orientation, 256-bit
+rBRIEF descriptors) runs level by level (unrolled, the default) or once
+over an ``(L, H, W)`` canvas of the levels (batched); both give the same
+features. ``OrbParams.subpixel`` fits a parabola on each kept corner's
+Harris neighbourhood.
 
 Descriptors are ``(K, 8)`` int32 words holding the same bits as the JAX
 package's uint32 words (``torch.uint32`` supports few operations).
@@ -16,6 +19,7 @@ package's uint32 words (``torch.uint32`` supports few operations).
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple
 
@@ -75,9 +79,18 @@ class OrbParams(NamedTuple):
     num_levels: int = 8
     scale_factor: float = 1.2
     border: int = PATCH_RADIUS + 4         # keep descriptor patches inside
-    # not ported yet (see ROADMAP): both raise NotImplementedError
+    # Harris-surface sub-pixel localization (off by default: integer anchors
+    # are deterministic across frames; KLT refines geometry instead)
     subpixel: bool = False
+    # layout of the per-keypoint half: level by level (False) or once over
+    # one (L, H, W) canvas of the levels (True); the same features
     batched: bool = False
+    # the JAX package's switches for its Pallas kernel, accepted so that its
+    # OrbParams carries over field for field; they select nothing here: a
+    # CUDA tensor always takes the CUDA kernel, a CPU tensor its plain
+    # version
+    pallas_dense: bool = False
+    pallas_interpret: bool = False
 
 
 def _pad_hw(img: Tensor, pad: int, mode: str = "constant",
@@ -269,6 +282,50 @@ def extract_patches(img: Tensor, xy: Tensor, radius: int) -> Tensor:
     return padded[rows, cols]
 
 
+def _extract_patches_lhw(canvas: Tensor, lev: Tensor, xy: Tensor,
+                         radius: int) -> Tensor:
+    """(K, P, P) patches from an (L, H, W) level canvas: keypoint ``k`` at
+    the integer-rounded level-local ``xy[k]`` of level ``lev[k]``, zero
+    outside the canvas (kept keypoints lie >= border from their level's
+    edges, so their patches never reach it). One gather for all levels."""
+    P = 2 * radius + 1
+    H, W = canvas.shape[-2:]
+    padded = _pad_hw(canvas, radius)
+    x0 = torch.clamp(torch.round(xy[:, 0]).to(torch.int64), 0, W - 1)
+    y0 = torch.clamp(torch.round(xy[:, 1]).to(torch.int64), 0, H - 1)
+    off = torch.arange(P, device=canvas.device)
+    rows = (y0[:, None] + off[None, :])[:, :, None]
+    cols = (x0[:, None] + off[None, :])[:, None, :]
+    return padded[lev[:, None, None], rows, cols]
+
+
+def _parabolic_offset(sm: Tensor, s0: Tensor, sp: Tensor) -> Tensor:
+    """1D quadratic-fit subpixel offset, trusted only at true 1D maxima
+    (the rank maximizes Harris among FAST corners, so a plain neighbour can
+    be larger: fitting uphill just clamps)."""
+    denom = 2.0 * (2.0 * s0 - sm - sp)
+    off = (sp - sm) / torch.where(torch.abs(denom) < torch.finfo(s0.dtype).eps,
+                                  torch.ones_like(denom), denom)
+    is_max = (s0 >= sm) & (s0 >= sp)
+    return torch.where(is_max, torch.clamp(off, -0.5, 0.5),
+                       torch.zeros_like(off))
+
+
+#: dtype of the Harris surface the subpixel fit reads. Its 7x7 box sums are
+#: cumsum differences, and running sums kept in float32 (XLA; torch on the
+#: card) round enough to move an offset by up to 4e-4 px (XLA against
+#: torch's CPU sums, which accumulate in float64, on a 480x640 frame); in
+#: float64 the card and the CPU agree
+_SUBPIXEL_DTYPE = torch.float64
+
+
+def _subpixel_offset(nbhd: Tensor) -> Tensor:
+    """(K, 2) offsets (dx, dy) from (K, 3, 3) Harris neighbourhoods."""
+    dx = _parabolic_offset(nbhd[:, 1, 0], nbhd[:, 1, 1], nbhd[:, 1, 2])
+    dy = _parabolic_offset(nbhd[:, 0, 1], nbhd[:, 1, 1], nbhd[:, 2, 1])
+    return torch.stack([dx, dy], dim=-1)
+
+
 def _level_shapes(H: int, W: int, params: OrbParams) -> list[tuple[int, int]]:
     """Static per-level (h, w) of the scale pyramid."""
     shapes = [(H, W)]
@@ -315,19 +372,25 @@ def orb_detect(img: Tensor, params: OrbParams = OrbParams()) -> FeatureSet:
     """Detect + describe up to ``params.max_features`` keypoints.
 
     ``img``: (H, W) float32 grayscale in [0, 1]. Per-level budgets are
-    proportional to level area, as in OpenCV ORB.
+    proportional to level area, as in OpenCV ORB. Both layouts
+    (``params.batched``) run the corner kernel once per image and give the
+    same features; they differ in the ``xy`` of invalid slots only.
     """
+    levels = pyramid(img, params)
+    if params.batched:
+        return _orb_detect_batched(levels, params)
+    return _orb_detect_unrolled(levels, params)
+
+
+def _orb_detect_unrolled(levels: list[Tensor],
+                         params: OrbParams) -> FeatureSet:
+    """The per-keypoint half level by level, at each level's own size."""
     from mvslam_tpu_torch.ops.features_cuda import (
         fast_nms_harris_rank_pyramid,
     )
 
-    if params.batched or params.subpixel:
-        raise NotImplementedError(
-            "OrbParams.batched / subpixel are not ported yet")
-    dtype, dev = img.dtype, img.device
+    dtype, dev = levels[0].dtype, levels[0].device
     budgets = _level_budgets(params)
-
-    levels = pyramid(img, params)
     ranks = fast_nms_harris_rank_pyramid(levels, params.fast_threshold,
                                          params.harris_k, params.border)
 
@@ -339,11 +402,21 @@ def orb_detect(img: Tensor, params: OrbParams = OrbParams()) -> FeatureSet:
         xy_int = torch.stack([(idx % w).to(dtype), (idx // w).to(dtype)],
                              dim=-1)
         valid = torch.isfinite(vals)
+        xy_level = xy_int
+        if params.subpixel:
+            # the rank's corner set is the kernel's; the fit needs the raw
+            # Harris surface around each corner, which the kernel does not
+            # write: the plain response of the level (see _SUBPIXEL_DTYPE)
+            harris = harris_response(level_img.to(_SUBPIXEL_DTYPE),
+                                     params.harris_k)
+            xy_level = xy_int + _subpixel_offset(
+                extract_patches(harris, xy_int, 1)).to(dtype)
+        # descriptors sample at the stable integer position
         patches = extract_patches(level_img, xy_int, PATCH_RADIUS + 2)
         angles = _orientation(patches)
         smooth = _box_sum_shifts(patches, 2) / 25.0
         parts.append(FeatureSet(
-            xy=xy_int * (params.scale_factor ** l),
+            xy=xy_level * (params.scale_factor ** l),
             response=torch.where(valid, vals, torch.full_like(vals, -math.inf)),
             angle=angles,
             octave=torch.full((k_l,), l, dtype=torch.int32, device=dev),
@@ -352,3 +425,91 @@ def orb_detect(img: Tensor, params: OrbParams = OrbParams()) -> FeatureSet:
             mask=valid,
         ))
     return FeatureSet(*(torch.cat(field) for field in zip(*parts)))
+
+
+class _CanvasLayout(NamedTuple):
+    """Static maps of the batched layout for one pyramid shape."""
+
+    dst: Tensor         # (sum h*w,) each level pixel's place in the canvas
+    lev: Tensor         # (K,) level of each keypoint slot
+    rnk: Tensor         # (K,) rank of each slot within its level
+    octave: Tensor      # (K,) int32
+    scale: Tensor       # (K,) scale_factor ** level
+    sigma: Tensor       # (K,) 2 ** level * 0.5
+
+
+@functools.lru_cache(maxsize=16)
+def _canvas_layout(shapes: tuple[tuple[int, int], ...],
+                   budgets: tuple[int, ...], scale_factor: float,
+                   device: torch.device, dtype: torch.dtype) -> _CanvasLayout:
+    """Built once per pyramid shape and device: the frame's calls then
+    upload nothing."""
+    H, W = shapes[0]
+    dst = np.concatenate([
+        l * H * W + (np.arange(h)[:, None] * W + np.arange(w)[None, :]).ravel()
+        for l, (h, w) in enumerate(shapes)])
+    slot_level = np.repeat(np.arange(len(shapes)), budgets)
+    slot_rank = np.concatenate([np.arange(n) for n in budgets])
+
+    def dev(a, dt):
+        return torch.as_tensor(a, dtype=dt, device=device)
+
+    return _CanvasLayout(
+        dst=dev(dst, torch.int64), lev=dev(slot_level, torch.int64),
+        rnk=dev(slot_rank, torch.int64), octave=dev(slot_level, torch.int32),
+        scale=dev(scale_factor ** slot_level.astype(np.float64), dtype),
+        sigma=dev(2.0 ** slot_level.astype(np.float64) * 0.5, dtype))
+
+
+def _canvas(flat: Tensor, dst: Tensor, shape: tuple[int, int, int],
+            fill: float) -> Tensor:
+    """The levels held in ``flat`` (level after level, row-major) placed
+    top-left in an (L, H, W) canvas filled with ``fill``: one scatter."""
+    out = torch.full((shape[0] * shape[1] * shape[2],), fill,
+                     dtype=flat.dtype, device=flat.device)
+    return out.index_copy_(0, dst, flat).view(shape)
+
+
+def _orb_detect_batched(levels: list[Tensor], params: OrbParams) -> FeatureSet:
+    """The per-keypoint half once over an (L, H, W) canvas (the JAX canvas
+    layout). The ranks of the one kernel call are placed into a -inf canvas
+    and the levels into a zero canvas; one stable descending sort per
+    canvas row keeps ``jax.lax.top_k``'s tie order (canvas index
+    ``y * W + x`` orders as ``y * w + x`` does within a level), a static
+    slot map picks each level's budget, and one patch gather, orientation
+    and descriptor pass serve all K keypoints."""
+    from mvslam_tpu_torch.ops.features_cuda import fast_nms_harris_rank_flat
+
+    dtype = levels[0].dtype
+    H, W = levels[0].shape
+    shape = (len(levels), H, W)
+    lay = _canvas_layout(tuple((lv.shape[0], lv.shape[1]) for lv in levels),
+                         tuple(int(b) for b in _level_budgets(params)),
+                         params.scale_factor, levels[0].device, dtype)
+    rank = _canvas(fast_nms_harris_rank_flat(
+        levels, params.fast_threshold, params.harris_k, params.border),
+        lay.dst, shape, -math.inf)
+    canvas = _canvas(torch.cat([lv.reshape(-1) for lv in levels]), lay.dst,
+                     shape, 0.0)
+    vals_l, idx_l = torch.sort(rank.reshape(shape[0], H * W), dim=1,
+                               descending=True, stable=True)
+    vals = vals_l[lay.lev, lay.rnk]
+    idx = idx_l[lay.lev, lay.rnk]
+    xy_int = torch.stack([(idx % W).to(dtype), (idx // W).to(dtype)], dim=-1)
+    valid = torch.isfinite(vals)
+    xy_level = xy_int
+    if params.subpixel:
+        # Harris over the canvas, as the JAX canvas layout computes it: at a
+        # level's pixels it sums the same values as the level's own response
+        harris = harris_response(canvas.to(_SUBPIXEL_DTYPE), params.harris_k)
+        xy_level = xy_int + _subpixel_offset(
+            _extract_patches_lhw(harris, lay.lev, xy_int, 1)).to(dtype)
+    # descriptors sample at the stable integer position
+    patches = _extract_patches_lhw(canvas, lay.lev, xy_int, PATCH_RADIUS + 2)
+    angles = _orientation(patches)
+    smooth = _box_sum_shifts(patches, 2) / 25.0
+    return FeatureSet(
+        xy=xy_level * lay.scale[:, None],
+        response=torch.where(valid, vals, torch.full_like(vals, -math.inf)),
+        angle=angles, octave=lay.octave, sigma=lay.sigma,
+        desc=_descriptors(smooth, angles), mask=valid)

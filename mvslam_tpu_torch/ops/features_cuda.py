@@ -3,8 +3,9 @@
 
 The rank map of a pyramid level is ``where(suppress(nms(fast(img))) > 0,
 harris(img), -inf)``. :func:`fast_nms_harris_rank_pyramid` computes the
-maps of all levels of one frame's pyramid, :func:`fast_nms_harris_rank`
-that of one level (the counterpart of the JAX function of that name):
+maps of all levels of one frame's pyramid (:func:`fast_nms_harris_rank_flat`
+the same maps as one flat buffer), :func:`fast_nms_harris_rank` that of one
+level (the counterpart of the JAX function of that name):
 
 - on CUDA tensors both launch ``csrc/fast_nms_harris.cu`` once (built with
   ``nvcc`` for ``sm_90a`` into ``build/kernels/`` at first use, rebuilt
@@ -161,21 +162,24 @@ def _check_levels(levels: Sequence[Tensor], border: int) -> None:
         raise ValueError(f"unsupported device {levels[0].device}")
 
 
-def fast_nms_harris_rank_pyramid(levels: Sequence[Tensor], threshold: float,
-                                 k: float, border: int) -> list[Tensor]:
-    """Rank maps of all levels of one pyramid: Harris where a FAST corner
-    survives strict 3x3 NMS and the border, -inf elsewhere.
+def fast_nms_harris_rank_flat(levels: Sequence[Tensor], threshold: float,
+                              k: float, border: int) -> Tensor:
+    """Rank maps of all levels of one pyramid, level after level (each
+    row-major) in one flat float32 tensor of ``sum(h * w)`` entries: Harris
+    where a FAST corner survives strict 3x3 NMS and the border, -inf
+    elsewhere.
 
     ``levels``: up to ``MAX_LEVELS`` contiguous (h, w) float32 images in
     [0, 1] on one device. CUDA tensors take one kernel launch for all
-    levels, on the current stream (no fallback); the maps are dense views
-    of one buffer. CPU tensors run the plain composition per level.
+    levels, on the current stream (no fallback); CPU tensors run the plain
+    composition per level.
     """
     levels = list(levels)
     _check_levels(levels, border)
     if levels[0].device.type == "cpu":
-        return [fast_nms_harris_rank_ref(lv, threshold, k, border)
-                for lv in levels]
+        return torch.cat([fast_nms_harris_rank_ref(lv, threshold, k,
+                                                   border).reshape(-1)
+                          for lv in levels])
     lib = load_library()
     shapes = tuple((lv.shape[0], lv.shape[1]) for lv in levels)
     tab, c_h, c_w, c_off, c_tile = _c_level_table(shapes)
@@ -191,13 +195,24 @@ def fast_nms_harris_rank_pyramid(levels: Sequence[Tensor], threshold: float,
         raise RuntimeError("fast_nms_harris_rank_pyramid launch failed: "
                            + lib.mvslam_cuda_error_string(err).decode())
     fast_nms_harris_rank_pyramid.launches += 1
+    return out
+
+
+def fast_nms_harris_rank_pyramid(levels: Sequence[Tensor], threshold: float,
+                                 k: float, border: int) -> list[Tensor]:
+    """Rank maps of all levels of one pyramid, as dense (h, w) views of
+    :func:`fast_nms_harris_rank_flat`'s one buffer (one kernel launch on
+    CUDA tensors, the plain composition per level on CPU tensors)."""
+    levels = list(levels)
+    flat = fast_nms_harris_rank_flat(levels, threshold, k, border)
+    shapes = [(lv.shape[0], lv.shape[1]) for lv in levels]
     # one view op per level (a slice and a reshape would be two)
-    return [out.as_strided((h, w), (w, 1), o)
-            for o, (h, w) in zip(tab.offsets, shapes)]
+    return [flat.as_strided((h, w), (w, 1), o)
+            for o, (h, w) in zip(level_table(shapes).offsets, shapes)]
 
 
 #: kernel launches since import (or since a caller reset it), whichever
-#: wrapper made them
+#: wrapper made them (all launch in ``fast_nms_harris_rank_flat``)
 fast_nms_harris_rank_pyramid.launches = 0
 
 

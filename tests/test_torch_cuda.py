@@ -9,7 +9,10 @@ frame, the card against the CPU under the same draws, the checkpoint round
 trip, and the writes through repeating indices. The remaining entry points:
 the calibration solve, its preview and the homographies against the CPU,
 the reconstruct-scene solve's two kernel launches, and the 2D viewer fed
-tensors on the card. Every test needs a CUDA card
+tensors on the card. The ORB options (one kernel launch per image, the
+batched layout equal to the unrolled one, subpixel against the CPU) and
+the distributed solvers on a one-rank NCCL group (bitwise the ungrouped
+solves). Every test needs a CUDA card
 and skips without one; this file imports no JAX, so on the card it runs as
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
@@ -241,9 +244,8 @@ def test_sparse_ba_on_the_card_matches_cpu(dev, dtype, tol):
     assert float((got.poses.t.cpu() - want.poses.t).abs().max()) <= tol * 16
 
 
-def test_float64_graph_solve_on_the_card(dev):
-    """A noisy 12-node ring with one closing edge, float64: the card and
-    the CPU take the same LM iterations to the same optimum."""
+def _ring_graph():
+    """A noisy 12-node ring with one closing edge, float64, on the CPU."""
     rng = np.random.default_rng(11)
     n = 12
     th = 2 * np.pi * np.arange(n) / n
@@ -258,10 +260,17 @@ def test_float64_graph_solve_on_the_card(dev):
         SE3(true.R[dst], true.t[dst]))
     prior_info = torch.zeros((n, 6, 6), dtype=torch.float64)
     prior_info[0] = torch.eye(6, dtype=torch.float64) / pg.ORIGIN_STDDEV ** 2
-    data = pg.PoseGraphData(
+    return pg.PoseGraphData(
         noisy, torch.ones(n, dtype=torch.bool), src, dst, rel,
         (100.0 * torch.eye(6, dtype=torch.float64)).expand(n, 6, 6).clone(),
         torch.ones(n, dtype=torch.bool), noisy, prior_info)
+
+
+def test_float64_graph_solve_on_the_card(dev):
+    """A noisy 12-node ring with one closing edge, float64: the card and
+    the CPU take the same LM iterations to the same optimum."""
+    data = _ring_graph()
+    src, dst, rel = data.edge_src, data.edge_dst, data.edge_rel
     on_card = convert.pose_graph_data_from_numpy(
         convert.problem_to_numpy(data), device=dev)
     assert on_card.poses.t.is_cuda and on_card.poses.t.dtype == torch.float64
@@ -485,3 +494,101 @@ def test_viewer_takes_card_tensors(dev, tmp_path):
     v.close()
     assert sorted(f for f in os.listdir(tmp_path) if f.startswith("view2d_")
                   ) == ["view2d_00001.png", "view2d_00002.png"]
+
+
+@pytest.mark.parametrize("subpixel", [False, True])
+def test_orb_batched_layout_equals_unrolled_on_the_card(dev, subpixel):
+    """One K1 launch per image in each layout; the same features but for
+    the angles' summation order."""
+    img = _levels(dev)[0]
+    got = []
+    for batched in (False, True):
+        before = features_cuda.fast_nms_harris_rank_pyramid.launches
+        got.append(features.orb_detect(img, P._replace(batched=batched,
+                                                       subpixel=subpixel)))
+        assert features_cuda.fast_nms_harris_rank_pyramid.launches == \
+            before + 1
+    fu, fb = got
+    m = fu.mask
+    assert torch.equal(fb.mask, m) and torch.equal(fb.octave, fu.octave)
+    assert torch.equal(fb.xy[m], fu.xy[m]) and torch.equal(fb.desc[m],
+                                                           fu.desc[m])
+    assert float((fb.angle[m] - fu.angle[m]).abs().max()) <= 1e-6
+
+
+@pytest.mark.parametrize("batched", [False, True])
+def test_orb_subpixel_on_the_card_matches_cpu(dev, batched):
+    """From the same pyramid: the same keypoints, the subpixel positions
+    within 1e-4 px of their level (the fit reads a float64 Harris
+    surface on both devices)."""
+    levels = _levels(dev, 480, 640)
+    detect = (features._orb_detect_batched if batched
+              else features._orb_detect_unrolled)
+    p = P._replace(batched=batched, subpixel=True)
+    card = detect(levels, p)
+    cpu = detect([lv.cpu() for lv in levels], p)
+    m = cpu.mask
+    assert torch.equal(card.mask.cpu(), m)
+    assert torch.equal(card.octave.cpu(), cpu.octave)
+    scale = (P.scale_factor ** cpu.octave[m].double())[:, None]
+    assert float(((card.xy.cpu()[m] - cpu.xy[m]).double() / scale)
+                 .abs().max()) <= 1e-4
+
+
+def test_distributed_solvers_on_one_nccl_rank_equal_the_ungrouped(dev):
+    """A one-rank NCCL group formed in this process: the sparse solve and
+    both graphs bitwise equal to the ungrouped solves."""
+    import torch.distributed as dist
+
+    from mvslam_tpu_torch import parallel
+    from mvslam_tpu_torch.backend import sim3_graph as sg
+    from mvslam_tpu_torch.parallel import dist_ba_sparse, dist_pose_graph
+
+    if dist.is_initialized():
+        pytest.skip("a process group is already initialised")
+    mesh = parallel.make_mesh("cuda")
+    try:
+        assert dist.get_backend() == "nccl"
+        prob, _, _ = make_sequence_ba_problem(0, num_frames=16,
+                                              points_per_frame=8,
+                                              dtype=torch.float64)
+        params = ba_sparse.SparseBAParams(max_iterations=6, cg_iterations=20)
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            a = ba_sparse.sparse_ba_solve(prob, params)
+            b = dist_ba_sparse.distributed_sparse_ba_solve(prob, mesh, params)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        assert torch.equal(a.poses.t, b.poses.t)
+        assert torch.equal(a.points, b.points)
+        assert int(a.iterations) == int(b.iterations)
+        data = convert.pose_graph_data_from_numpy(
+            convert.problem_to_numpy(_ring_graph()), device=dev)
+        a = pg.pose_graph_optimize(data)
+        b = dist_pose_graph.distributed_pose_graph_optimize(data, mesh)
+        assert torch.equal(a.poses.t, b.poses.t)
+        sim3 = sg.Sim3GraphData(
+            sg.Sim3(torch.ones(data.poses.t.shape[0], dtype=torch.float64,
+                               device=dev), data.poses.R, data.poses.t),
+            data.node_mask, data.edge_src, data.edge_dst,
+            sg.Sim3(torch.ones(data.edge_src.shape[0], dtype=torch.float64,
+                               device=dev), data.edge_rel.R, data.edge_rel.t),
+            _info7(data.edge_info), data.edge_mask,
+            sg.Sim3(torch.ones(data.poses.t.shape[0], dtype=torch.float64,
+                               device=dev), data.prior_pose.R,
+                    data.prior_pose.t), _info7(data.prior_info))
+        a = sg.sim3_graph_optimize(sim3)
+        b = dist_pose_graph.distributed_sim3_graph_optimize(sim3, mesh)
+        assert torch.equal(a.poses.t, b.poses.t)
+        assert torch.equal(a.poses.s, b.poses.s)
+    finally:
+        dist.destroy_process_group()
+
+
+def _info7(info6):
+    """A 7x7 information with the 6x6 block and unit scale information."""
+    out = torch.zeros(info6.shape[:-2] + (7, 7), dtype=info6.dtype,
+                      device=info6.device)
+    out[..., :6, :6] = info6
+    out[..., 6, 6] = 1.0
+    return out

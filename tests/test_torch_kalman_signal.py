@@ -212,3 +212,26 @@ def test_state_estimates_match(rng, name, rtol):
     want = jse.TransformationEstimate(JSE3.exp(jxi), jcov)
     _close(got.info(), want.info(), 10 * rtol)
     _close(got.mean.t, want.mean.t, rtol)
+
+
+@pytest.mark.parametrize("name", ["float32", "float64"])
+def test_info_of_a_singular_covariance_matches(name):
+    """A singular covariance: ``info()`` returns what ``jnp.linalg.inv``
+    does (nan, inf and the finite entries in the same places), not an
+    error."""
+    cov3 = np.diag([1.0, 0.0, 1.0])
+    cov6 = np.diag([1.0, 0.0, 1.0, 1.0, 1.0, 1.0])
+    tm, jm = _pair(np.zeros(3), name)
+    tc3, jc3 = _pair(cov3, name)
+    tc6, jc6 = _pair(cov6, name)
+    pairs = [(tse.StateEstimate(tm, tc3).info(),
+              jse.StateEstimate(jm, jc3).info()),
+             (tse.TransformationEstimate(SE3.identity(), tc6).info(),
+              jse.TransformationEstimate(JSE3.identity(), jc6).info())]
+    for got, want in pairs:
+        got, want = got.numpy(), np.asarray(want)
+        assert not np.isfinite(want).all()
+        for pattern in (np.isnan, np.isposinf, np.isneginf, np.isfinite):
+            np.testing.assert_array_equal(pattern(got), pattern(want))
+        np.testing.assert_array_equal(got[np.isfinite(got)],
+                                      want[np.isfinite(want)])

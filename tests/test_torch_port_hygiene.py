@@ -58,7 +58,9 @@ def test_every_new_module_is_found():
                  "utils.logging", "utils.strings", "utils.sync",
                  "utils.timing", "apps.reconstruct_scene",
                  "apps.calibrate_camera", "apps.demos",
-                 "apps.video_capture"):
+                 "apps.video_capture", "parallel.mesh", "parallel.dist_ba",
+                 "parallel.dist_ba_sparse", "parallel.dist_pose_graph",
+                 "parallel.multihost"):
         assert f"mvslam_tpu_torch.{name}" in mods, name
     assert len(port_sources()) == len(mods) + len(ROOT_SCRIPTS)
 
@@ -177,9 +179,11 @@ def _entry_points():
     )
     from mvslam_tpu_torch.apps import calibrate_camera, demos
     from mvslam_tpu_torch.apps import reconstruct_scene
-    from mvslam_tpu_torch.parallel import synthetic
+    from mvslam_tpu_torch.parallel import make_mesh, multihost, synthetic
 
     return [vo_init_state, state_from_numpy, convert.step_out_from_numpy,
+            convert.ba_problem_from_numpy, make_mesh,
+            multihost.make_hybrid_mesh, multihost.initialize,
             convert.calibration_result_from_numpy,
             reconstruct_scene.reconstruct, calibrate_camera.calibrate_views,
             demos.demo_visual_feature, demos.demo_visualizer_2d,
@@ -199,8 +203,11 @@ def _entry_points():
                          ids=lambda f: f.__qualname__)
 def test_entry_points_default_to_the_card(entry):
     """The port's entry points build state on the card unless the caller
-    names another device; they do not probe for one."""
-    assert inspect.signature(entry).parameters["device"].default == "cuda"
+    names another device (the meshes and the process group: another device
+    type); they do not probe for one."""
+    params = inspect.signature(entry).parameters
+    name = "device" if "device" in params else "device_type"
+    assert params[name].default == "cuda"
 
 
 def test_front_end_builds_on_the_device_it_is_given():

@@ -418,10 +418,13 @@ def test_full_keyframe_store_warns_once():
 
 
 def test_optimize_with_a_mesh_is_refused():
+    """``optimize(mesh=...)`` shards the edges over a ``DeviceMesh``
+    (``test_torch_parallel.py`` runs it on one and four ranks); what is no
+    mesh is refused, for both graphs."""
     tb = _two_segment_backend()
-    with pytest.raises(NotImplementedError, match="S14"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tb.optimize(mesh=object())
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tb.optimize(mesh=object(), method="se3")
 
 
