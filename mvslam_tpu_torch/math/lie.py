@@ -166,6 +166,9 @@ class SE3(NamedTuple):
     def compose(self, other: "SE3") -> "SE3":
         return SE3(self.R @ other.R, _matvec(self.R, other.t) + self.t)
 
+    def __matmul__(self, other: "SE3") -> "SE3":
+        return self.compose(other)
+
     def inverse(self) -> "SE3":
         RT = self.R.transpose(-1, -2)
         return SE3(RT, -_matvec(RT, self.t))

@@ -33,9 +33,23 @@ def _cross(a: Tensor, b: Tensor) -> Tensor:
     return torch.linalg.cross(a, b, dim=-1)
 
 
+def eigh(M: Tensor) -> tuple[Tensor, Tensor]:
+    """``torch.linalg.eigh`` with ``jnp.linalg.eigh``'s failure semantics:
+    where the solver does not converge, torch raises and JAX returns NaN
+    eigenvalues and eigenvectors, which its callers' finite checks then
+    drop. cuSOLVER does so on the float32 refit of an exact 8-point rig,
+    and so does the LAPACK of some hosts; here it gives NaN, for the whole
+    batch when any matrix of it fails."""
+    try:
+        return torch.linalg.eigh(M)
+    except torch.linalg.LinAlgError:
+        nan = torch.full_like(M, math.nan)
+        return nan[..., 0], nan
+
+
 def smallest_eigvec_psd_exact(M: Tensor) -> Tensor:
-    """Reference implementation via ``torch.linalg.eigh``."""
-    _, vecs = torch.linalg.eigh(M)
+    """Reference implementation via ``eigh``."""
+    _, vecs = eigh(M)
     return vecs[..., :, 0]
 
 

@@ -82,7 +82,7 @@ def _solve_epipolar_span(p1: Tensor, p2: Tensor, weights: Tensor,
     A = _dlt_rows(p1, p2) * weights[..., None]
     AtA = A.transpose(-1, -2) @ A
     if use_eigh:
-        _, V = torch.linalg.eigh(AtA)           # ascending eigenvalues
+        _, V = linalg.eigh(AtA)                 # ascending eigenvalues
         v1, v2 = V[..., :, 0], V[..., :, 1]
     else:
         v1, v2 = linalg.smallest_eigvecs2_psd(AtA)

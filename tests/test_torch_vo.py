@@ -21,6 +21,8 @@ from mvslam_tpu_torch.convert import state_from_numpy, state_to_numpy
 from mvslam_tpu_torch.frontend import vo_jit as tv
 from mvslam_tpu_torch.utils.scene import render_planes_sequence
 
+from test_torch_ref_common import one_torch_thread  # noqa: F401 (autouse)
+
 H, W, FOCAL = 240, 320, 280.0
 N_FRAMES = 8
 BLANK = 4
