@@ -1,10 +1,12 @@
 """GPU smoke run of the PyTorch port: builds the CUDA corner kernel, checks
 both of its wrappers against its plain version, times its one launch per
 pyramid (eager call, CUDA-graph replay) beside the plain version and the
-card's bound, checks the tracker on the card against the tracker on the
-CPU, holds the port to the JAX package's own tests' bars on the card
-(``reference bars``: the 40-frame yawing sequence of tests/test_rotation.py
-through the replay, the tracker's bootstrap fallbacks and pipelined split,
+card's bound, checks the 8-point DLT solver on the card against the CPU
+and float64 eigh and times it (``solver``), checks the tracker on the card
+against the tracker on the CPU, holds the port to the JAX package's own
+tests' bars on the card (``reference bars``: the 40-frame yawing sequence
+of tests/test_rotation.py through the replay, the tracker's bootstrap
+fallbacks and pipelined split,
 the two-view, PnP and BA solves of the reference's rigs in float64 and
 float32), then drives the tracker's main path (110-frame replay) on the
 card and times it. Then the SLAM path: the 90-frame closed loop through the
@@ -43,6 +45,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import hashlib
 import json
 import os
@@ -72,6 +75,7 @@ from mvslam_tpu_torch.frontend.vo_jit import (
 )
 from mvslam_tpu_torch.io import load_image_grayscale, native_loader
 from mvslam_tpu_torch.io.checkpoint import load_checkpoint, save_checkpoint
+from mvslam_tpu_torch.math import fma, linalg
 from mvslam_tpu_torch.math.lie import SE3, so3_exp, so3_from_rpy, so3_log
 from mvslam_tpu_torch.ops import ba as ba_dense
 from mvslam_tpu_torch.ops import ba_sparse, features, features_cuda, pnp, sfm
@@ -86,6 +90,11 @@ from mvslam_tpu_torch.viz import Visualizer2d, load_trajectory_tum
 
 KERNEL_SOURCE = "mvslam_tpu_torch/csrc/fast_nms_harris.cu"
 KERNEL_REPLACES = "mvslam_tpu/ops/features_pallas.py:142"
+#: where float32 resolves the bottom subspace (eigenvalues 0, 1e-10, 1e-3,
+#: ... of the scale for the pair; 0, 0.05, ... for one vector), the
+#: solver's span against float64 eigh (radians): the float32 rounding of
+#: the matrix over the gap, eps32 * trace / gap = 6e-4 and 1.2e-5
+SOLVER_EIGH_ANGLE = {"two": 1e-3, "one": 3e-5}
 #: Harris agreement on corners, relative to the level's max |Harris|:
 #: direct 7-tap sums (kernel) against cumsum differences (plain version)
 HARRIS_RTOL = 1e-5
@@ -432,6 +441,122 @@ def phase_kernel(dev, orb: features.OrbParams):
                 bound_ms=bound["bound_ms"], bound_by=bound["bound_by"])
 
 
+@contextlib.contextmanager
+def library_products():
+    """The solver on the CPU as it was: the BLAS's own products and the
+    reduction kernel's trace."""
+    saved = (fma.fma_matmul, linalg.fma_matmul, linalg.chain_matmul,
+             linalg._trace_in_order)
+    fma.fma_matmul = linalg.fma_matmul = linalg.chain_matmul = torch.matmul
+    linalg._trace_in_order = linalg._trace
+    try:
+        yield
+    finally:
+        (fma.fma_matmul, linalg.fma_matmul, linalg.chain_matmul,
+         linalg._trace_in_order) = saved
+
+
+def solve_spans(M: torch.Tensor) -> dict:
+    """The amplified solvers' spans of ``M`` (the pair of the 8-point DLT,
+    the one vector of PnP and triangulation), as numpy (n, k) bases."""
+    v1, v2 = linalg.smallest_eigvecs2_psd(M)
+    return {"two": torch.stack([v1, v2], -1).cpu().numpy(),
+            "one": linalg.smallest_eigvec_psd(M)[..., None].cpu().numpy()}
+
+
+def frame1_dlt(dev, params: VoJitParams) -> torch.Tensor:
+    """The Gram batch of the first RANSAC of the tracker's frame-1
+    bootstrap on the card (frames 0 and 1 of the scene of
+    tests/test_torch_vo.py, numpy draws of seed 0)."""
+    frames, _ = branch_scene()
+    K_inv = intrinsics_inv(dev, LOOP_H, LOOP_W, LOOP_FOCAL)
+    focal = torch.tensor(LOOP_FOCAL, dtype=torch.float32, device=dev)
+    step, rng, seen = make_vo_step(params), np.random.default_rng(0), []
+    solve = linalg.smallest_eigvecs2_psd
+
+    def record(M, *args, **kw):
+        if not seen and M.shape[0] == params.ransac_hypotheses:
+            seen.append(M.clone())
+        return solve(M, *args, **kw)
+
+    linalg.smallest_eigvecs2_psd = record
+    try:
+        state = vo_init_state(params, device=dev)
+        for image in frames[:2]:
+            draws = tracker_draws(int(state.mode), params, rng)
+            state, _ = step(state, torch.from_numpy(image).to(dev), K_inv,
+                            focal, None if draws is None else torch.tensor(
+                                draws, dtype=torch.float32, device=dev))
+    finally:
+        linalg.smallest_eigvecs2_psd = solve
+    if not seen:
+        raise AssertionError("frame 1 ran no RANSAC batch")
+    return seen[0]
+
+
+def phase_solver(dev, params: VoJitParams, gpu: str) -> None:
+    """The 8-point DLT solver: on two near-degenerate batches (the
+    tracker's frame-1 bootstrap, a two-plane draw) the card's spans against
+    the CPU's and both against float64 eigh, printed (float32 cannot
+    resolve these subspaces); on the card held to float64 eigh where
+    float32 can; a RANSAC batch's solve timed on the card (cuBLAS) and on
+    the CPU (the fixed orders of ``math/fma.py``) beside the BLAS's own
+    products."""
+    batches = {"frame-1 DLT": frame1_dlt(dev, params),
+               "two-plane DLT": dlt_gram(two_plane_dlt(), dev)}
+    report = []
+    for name, M in batches.items():
+        card, cpu = solve_spans(M), solve_spans(M.cpu())
+        eig = np.linalg.eigh(M.cpu().double().numpy())[1]
+        row = [name]
+        for which, k in (("two", 2), ("one", 1)):
+            e_card = span_angle(card[which], eig[..., :k])
+            e_cpu = span_angle(cpu[which], eig[..., :k])
+            row.append(
+                f"{which}: card vs CPU max "
+                f"{span_angle(card[which], cpu[which]).max():.2e} rad; vs "
+                f"float64 eigh median card {np.median(e_card):.3e} CPU "
+                f"{np.median(e_cpu):.3e} rad")
+        report.append(", ".join(row))
+    for which, k in (("two", 2), ("one", 1)):
+        M32 = separated_psd(which)
+        ref = np.linalg.eigh(M32.astype(np.float64))[1][..., :k]
+        ang = float(span_angle(solve_spans(torch.from_numpy(M32).to(dev))[
+            which], ref).max())
+        if ang >= SOLVER_EIGH_ANGLE[which]:
+            raise AssertionError(f"separated batch {which}: {ang} rad from "
+                                 "float64 eigh")
+        report.append(f"separated batch ({which}) on the card vs float64 "
+                      f"eigh {ang:.2e} rad (bound {SOLVER_EIGH_ANGLE[which]})")
+    log("solver: " + "; ".join(report))
+
+    M = batches["frame-1 DLT"]
+    M_cpu = M.cpu()
+
+    def host_ms(fn, reps: int = 20) -> float:
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return (time.perf_counter() - t0) / reps * 1e3
+
+    def cpu_library():
+        with library_products():
+            return linalg.smallest_eigvecs2_psd(M_cpu)
+
+    card_ms = [cuda_ms(lambda: linalg.smallest_eigvecs2_psd(M), 20)
+               for _ in range(2)]
+    lib1 = host_ms(cpu_library)
+    fixed = [host_ms(lambda: linalg.smallest_eigvecs2_psd(M_cpu))
+             for _ in range(2)]
+    lib2 = host_ms(cpu_library)
+    log(f"solver: smallest_eigvecs2_psd of a (256, 9, 9) RANSAC batch (24 "
+        f"squarings): card {card_ms[0]:.3f}/{card_ms[1]:.3f} ms on {gpu}; "
+        f"CPU fixed orders {fixed[0]:.2f}/{fixed[1]:.2f} ms, the BLAS's own "
+        f"products {lib1:.2f}/{lib2:.2f} ms (library, fixed, fixed, "
+        f"library; {torch.get_num_threads()} threads)")
+
+
 def tracker_draws(mode: int, params: VoJitParams, rng):
     """The RANSAC uniforms a step starting in ``mode`` consumes."""
     K = params.orb.max_features
@@ -663,6 +788,54 @@ def rig_points(rig: np.ndarray) -> np.ndarray:
     place it: rotated by rpy (0.1, -0.2, 0.3), 6 units ahead."""
     R = so3_from_rpy(0.1, -0.2, 0.3, dtype=torch.float64).numpy()
     return rig @ R.T + np.array([0.3, -0.2, 6.0])
+
+
+def two_plane_dlt(seed: int = 0, n_sets: int = 256) -> np.ndarray:
+    """DLT rows (n_sets, 8, 9), float32, of 8-point draws of a two-plane
+    scene: a fronto-parallel plane at depth 3 on the left of the image, a
+    plane sloping with the image row behind it, the camera moving (0.12,
+    0.005, 0), 0.3 px of noise at focal 280 on the second view."""
+    rng = np.random.default_rng(seed)
+    uv = rng.uniform([-0.55, -0.42], [0.55, 0.42], (300, 2))
+    depth = np.where(uv[:, 0] < 0.0, 3.0, 6.0 / (1.0 + 0.18 * uv[:, 1]))
+    X = np.concatenate([uv * depth[:, None], depth[:, None]], 1)
+    cam2 = X - np.array([0.12, 0.005, 0.0])
+    p2 = cam2[:, :2] / cam2[:, 2:] + rng.normal(scale=0.3 / 280.0,
+                                                size=(300, 2))
+    idx = np.stack([rng.choice(300, 8, replace=False)
+                    for _ in range(n_sets)])
+    x1, y1 = uv[idx, 0], uv[idx, 1]
+    x2, y2 = p2[idx, 0], p2[idx, 1]
+    one = np.ones_like(x1)
+    return np.stack([x2 * x1, x2 * y1, x2, y2 * x1, y2 * y1, y2, x1, y1, one],
+                    axis=-1).astype(np.float32)
+
+
+def dlt_gram(A: np.ndarray, dev="cpu") -> torch.Tensor:
+    """``A^T A`` of DLT rows, as the 8-point solve forms it."""
+    A = torch.as_tensor(A).to(dev)
+    return fma.fma_matmul(A.mT, A)
+
+
+def span_angle(X: np.ndarray, U: np.ndarray) -> np.ndarray:
+    """Largest principal angle (radians) between the column spans of two
+    batches of (n, k) bases."""
+    Q1 = np.linalg.qr(X.astype(np.float64))[0]
+    Q2 = np.linalg.qr(U.astype(np.float64))[0]
+    s = np.linalg.svd(np.swapaxes(Q1, -1, -2) @ Q2, compute_uv=False)
+    return np.arccos(np.clip(s.min(-1), -1.0, 1.0))
+
+
+def separated_psd(which: str, n_batch: int = 128) -> np.ndarray:
+    """A float32 PSD batch whose bottom subspace float32 resolves (see
+    SOLVER_EIGH_ANGLE)."""
+    rng = np.random.default_rng(9)
+    Q = np.linalg.qr(rng.normal(size=(n_batch, 9, 9)))[0]
+    lam = np.sort(rng.uniform(0.05, 1.0, (n_batch, 9)), axis=-1)
+    lam[:, 0] = 0.0
+    if which == "two":
+        lam[:, 1], lam[:, 2] = 1e-10, 1e-3
+    return ((Q * lam[:, None, :]) @ np.swapaxes(Q, -1, -2)).astype(np.float32)
 
 
 def geometry_errors(dev, dtype, rig: np.ndarray, uniforms: dict) -> dict:
@@ -2229,6 +2402,7 @@ def main() -> int:
     params = VoJitParams()
     card = f"{gpu} ({smi})"
     k1 = phase_kernel(dev, params.orb)
+    phase_solver(dev, params, card)
     phase_parity(dev, params)
     rot_launches = phase_reference_bars(dev, params, card)
     launches, frames, _ = phase_main(dev, params, card)

@@ -4,7 +4,11 @@ The closed forms (spectral amplification, Cardano eigensystems, Newton
 polar) are ported as written rather than swapped for ``torch.linalg``
 calls, so both packages take the same numerical path; where the JAX
 package itself calls ``eigh``/``cholesky``/triangular solves, the
-``torch.linalg`` counterpart is used.
+``torch.linalg`` counterpart is used. On the CPU the two-vector solver of
+the 8-point DLT sums its squarings (:func:`fma.fma_matmul`; the epipolar
+module its Gram matrices), its trace and its read-out
+(:func:`fma.chain_matmul`) in fixed orders: what MKL computes on AVX-512
+Intel hosts, now on every host.
 """
 
 from __future__ import annotations
@@ -12,6 +16,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from mvslam_tpu_torch.math.fma import chain_matmul, fma_matmul
 
 Tensor = torch.Tensor
 
@@ -22,6 +28,22 @@ def _eye(n: int, like: Tensor) -> Tensor:
 
 def _trace(M: Tensor) -> Tensor:
     return torch.diagonal(M, dim1=-2, dim2=-1).sum(-1)
+
+
+def _trace_in_order(M: Tensor) -> Tensor:
+    """Diagonal sum on the CPU in torch's own order there, written out (four
+    interleaved partial sums added in turn) so no kernel's choice moves it;
+    on the card the reduction's own order."""
+    if M.device.type != "cpu":
+        return _trace(M)
+    d = torch.diagonal(M, dim1=-2, dim2=-1)
+    parts = [d[..., j] for j in range(min(4, d.shape[-1]))]
+    for i in range(4, d.shape[-1]):
+        parts[i % 4] = parts[i % 4] + d[..., i]
+    t = parts[0]
+    for part in parts[1:]:
+        t = t + part
+    return t
 
 
 def _norm(x: Tensor, keepdim: bool = True) -> Tensor:
@@ -53,16 +75,24 @@ def smallest_eigvec_psd_exact(M: Tensor) -> Tensor:
     return vecs[..., :, 0]
 
 
-def _amplify(M: Tensor, iterations: int) -> Tensor:
-    """``B = (c I - M) / c`` squared ``iterations`` times, renormalized."""
+def _amplify(M: Tensor, iterations: int, fused: bool = False) -> Tensor:
+    """``B = (c I - M) / c`` squared ``iterations`` times, renormalized.
+
+    ``fused``: the shift's trace summed in a fixed order and the squarings
+    through :func:`fma_matmul` (XLA's summation), the same bits on every
+    CPU. The bottom eigenvalues of an 8-point DLT's Gram matrix lie below
+    ``eps32 * trace``, so which of them the squarings single out follows
+    the last bits of those sums; a BLAS sums in an order of its own
+    choosing."""
     dtype = M.dtype
     n = M.shape[-1]
     tiny = torch.finfo(dtype).tiny
-    c = _trace(M)[..., None, None]
+    c = (_trace_in_order(M) if fused else _trace(M))[..., None, None]
     c = torch.abs(c) * (1.0 + torch.finfo(dtype).eps) + tiny
     B = (c * _eye(n, M) - M) / c
+    square = fma_matmul if fused else torch.matmul
     for _ in range(iterations):
-        B = B @ B
+        B = square(B, B)
         scale = torch.amax(torch.abs(B), dim=(-2, -1), keepdim=True)
         B = B / torch.clamp(scale, min=tiny)
     return B
@@ -109,10 +139,10 @@ def smallest_eigvecs2_psd(M: Tensor, iterations: int = 8
     tiny = torch.finfo(dtype).tiny
     eye = _eye(n, M)
     iterations = max(iterations, 24) if n > 2 else iterations
-    B = _amplify(M, iterations)
+    B = _amplify(M, iterations, fused=True)
     s1, s2 = _starts(n, M)
     starts = torch.stack([s1, s2], dim=-1)                 # (n, 2)
-    X = B @ starts.expand(M.shape[:-2] + (n, 2))
+    X = chain_matmul(B, starts.expand(M.shape[:-2] + (n, 2)))
     x1 = X[..., 0]
     x2 = X[..., 1]
     v1 = x1 / torch.clamp(_norm(x1), min=tiny)

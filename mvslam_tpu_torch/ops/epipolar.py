@@ -13,7 +13,7 @@ import math
 
 import torch
 
-from mvslam_tpu_torch.math import linalg
+from mvslam_tpu_torch.math import fma, linalg
 from mvslam_tpu_torch.math.lie import SE3, skew, so3_exp
 
 Tensor = torch.Tensor
@@ -80,7 +80,8 @@ def _solve_epipolar_span(p1: Tensor, p2: Tensor, weights: Tensor,
                          use_eigh: bool = False) -> tuple[Tensor, Tensor]:
     """Two smallest-eigenvalue DLT solutions, (..., 3, 3) each."""
     A = _dlt_rows(p1, p2) * weights[..., None]
-    AtA = A.transpose(-1, -2) @ A
+    At = A.transpose(-1, -2)
+    AtA = At @ A if use_eigh else fma.fma_matmul(At, A)
     if use_eigh:
         _, V = linalg.eigh(AtA)                 # ascending eigenvalues
         v1, v2 = V[..., :, 0], V[..., :, 1]

@@ -164,6 +164,10 @@ def pnp_ransac_core(X: Tensor, r: Tensor, mask: Tensor, num_hypotheses: int,
     sets come from ``uniforms`` (num_hypotheses, N) or ``generator``."""
     dtype = X.dtype
     tiny = torch.finfo(dtype).tiny ** 0.5
+    if uniforms is not None and tuple(uniforms.shape) != (num_hypotheses,
+                                                          X.shape[0]):
+        raise ValueError(f"uniforms of shape {tuple(uniforms.shape)}, the "
+                         f"PnP draws are ({num_hypotheses}, {X.shape[0]})")
     idx = ransac_mod.sample_minimal_sets(mask, num_hypotheses, 3, generator,
                                          uniforms)
     Xs, rs = X[idx], r[idx]

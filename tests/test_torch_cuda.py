@@ -612,3 +612,19 @@ def test_reference_rigs_solve_on_the_card(dev, dtype):
         for solver, (e_pose, e_pts, _) in cs.geometry_errors(
                 dev, dtype, rig, uniforms).items():
             assert e_pose < tol and e_pts < 10 * tol, solver
+
+
+# -- the 8-point DLT solver on the card -------------------------------------
+
+@pytest.mark.parametrize("which", ["two", "one"])
+def test_dlt_solver_on_the_card_spans_eigh_subspace(dev, which):
+    """On the card (cuBLAS's products) the solvers span float64 eigh's
+    bottom subspace where float32 resolves it, within chip_smoke's bound
+    (the CPU's own case: tests/test_torch_ref_math.py)."""
+    import chip_smoke as cs
+
+    M32 = cs.separated_psd(which)
+    k = 2 if which == "two" else 1
+    ref = np.linalg.eigh(M32.astype(np.float64))[1][..., :k]
+    got = cs.solve_spans(torch.from_numpy(M32).to(dev))[which]
+    assert cs.span_angle(got, ref).max() < cs.SOLVER_EIGH_ANGLE[which]

@@ -324,6 +324,19 @@ def test_pnp_ransac_core_same_pose(pnp_scene):
     _close(pt.t.numpy(), t, atol=0.02)
 
 
+@pytest.mark.parametrize("shape", [(3, 128, 100), (128, 99), (100, 128)])
+def test_pnp_ransac_core_rejects_draws_of_another_shape(pnp_scene, shape):
+    """Draws shaped for another mode (the bootstrap's are (window,
+    hypotheses, N)) raise, naming both shapes, instead of failing inside
+    the P3P reshape."""
+    X, r, mask, _, _ = pnp_scene
+    X, r = X[:100], r[:100]
+    u = torch.rand(shape, generator=torch.Generator().manual_seed(0))
+    with pytest.raises(ValueError, match=r"uniforms of shape .*\(128, 100\)"):
+        tpnp.pnp_ransac_core(_t(X), _t(r), torch.from_numpy(mask[:100]), 128,
+                             (0.75 / FOCAL) ** 2, uniforms=u)
+
+
 def test_pose_dlt_and_refine_gn(pnp_scene):
     X, r, mask, _, _ = pnp_scene
     w = mask.astype(np.float32)

@@ -57,10 +57,12 @@ from mvslam_tpu.math import lie as jl
 from mvslam_tpu.math import linalg as jla
 from mvslam_tpu.math import state_estimate as jse
 from mvslam_tpu_torch import config as tconfig
+from mvslam_tpu_torch.math import fma as tfma
 from mvslam_tpu_torch.math import lie as tl
 from mvslam_tpu_torch.math import linalg as tla
 from mvslam_tpu_torch.math import state_estimate as tse
 
+import chip_smoke as cs
 from test_torch_ref_common import DTYPES, Dt, check_similar_se3, random_se3
 from test_torch_ref_common import one_torch_thread  # noqa: F401 (autouse)
 
@@ -386,3 +388,131 @@ def test_ini_format(tmp_path):
         assert pm.get_value("Mod", "key", "") == "value with spaces"
         assert pm.get_value("Mod", "num", 0) == 7
         assert pm.get_value("Other", "x", 0) == 1
+
+
+# -- the DLT null-space solver's float32 arithmetic -------------------------
+#
+# The minimal 8-point DLTs of a two-plane scene are near-degenerate: over
+# the batch below, the median eigenvalues of A^T A over its trace are
+# -9.7e-12, 3.6e-8 and 1.4e-6 (float64 eigh of the float32 Gram matrix),
+# all at or under float32's 1.2e-7. Which bottom pair the spectral
+# amplification returns is then set by the last bits of its sums, and
+# float32 cannot resolve that subspace: JAX's own float32
+# ``smallest_eigvecs2_psd`` spans float64 eigh's bottom pair within 0.35
+# degrees at the median and 87 degrees at worst (its
+# ``smallest_eigvec_psd``: 70.6 degrees at the median); the port's pair
+# 0.31 and 78 degrees. The 8-point solve used to take those sums from the
+# host's BLAS (MKL sums small products as a fused multiply-add chain on
+# AVX-512 Intel hosts, with a multiply and an add in other orders on its
+# AVX2 and compatibility paths), so its bootstraps agreed with JAX's on one
+# host and not on another. On the CPU it now forms its Gram matrices and
+# squarings as that chain (``math/fma.py``: XLA's summation, bit for bit)
+# and its shift's trace and read-out in MKL's AVX-512 orders: the pair the
+# port computed on AVX-512 Intel hosts, now on every BLAS path. Where
+# float32 can resolve the subspace (``test_dlt_solver_spans_eigh_subspace``)
+# both packages are held to float64 eigh.
+
+#: the median angle between the pair and float64 eigh's bottom pair on the
+#: two-plane batch, in both packages (radians; measured 5.4e-3 in the port,
+#: 6.0e-3 in JAX)
+DLT_MEDIAN_ANGLE = 1e-2
+
+
+@pytest.fixture(scope="module")
+def dlt_batch():
+    A = cs.two_plane_dlt()
+    M = cs.dlt_gram(A)
+    j1, j2 = jax.jit(jla.smallest_eigvecs2_psd)(jnp.asarray(M.numpy()))
+    return A, M, {"two": np.stack([np.asarray(j1), np.asarray(j2)], -1)}
+
+
+def test_fma_matmul_is_the_jax_dot(dlt_batch):
+    """The amplification's squarings come out of the port bit for bit as
+    out of XLA's dot; the batch is near-degenerate."""
+    _, M, _ = dlt_batch
+    lam = np.linalg.eigvalsh(M.double().numpy())
+    ratio = lam / np.trace(M.double().numpy(), axis1=-2, axis2=-1)[:, None]
+    assert np.median(np.abs(ratio[:, 0])) < 1e-9
+    assert np.median(ratio[:, 2]) < 1e-5
+    B = torch.from_numpy(np.random.default_rng(1).uniform(
+        -1, 1, (256, 9, 9)).astype(np.float32))
+    np.testing.assert_array_equal(
+        tfma.fma_matmul(B, B).numpy(),
+        np.asarray(jax.jit(lambda b: b @ b)(B.numpy())))
+    # one rounding per step: (1 + u)(1 - u) - 1 is -u^2, not the 0 of a
+    # rounded product (u = 2^-23)
+    a = torch.tensor([[[1.0, 1.0 + 2.0 ** -23]]])
+    b = torch.tensor([[[-1.0], [1.0 - 2.0 ** -23]]])
+    assert float(tfma.fma_matmul(a, b)) == -2.0 ** -46
+
+
+def test_dlt_solver_matches_jax_on_a_near_degenerate_batch(dlt_batch):
+    """On the near-degenerate batch the pair is resolved as well as JAX's
+    float32 pair is: the same median angle to float64 eigh's bottom pair
+    (the worst hypotheses are rounding's in both, see above)."""
+    _, M, jax_out = dlt_batch
+    ref = np.linalg.eigh(M.double().numpy())[1][..., :2]
+    port = np.median(cs.span_angle(cs.solve_spans(M)["two"], ref))
+    jax_ = np.median(cs.span_angle(jax_out["two"], ref))
+    assert port < DLT_MEDIAN_ANGLE and jax_ < DLT_MEDIAN_ANGLE, (port, jax_)
+
+
+@pytest.mark.parametrize("env", ["MKL_CBWR=COMPATIBLE",
+                                 "MKL_ENABLE_INSTRUCTIONS=AVX2"])
+def test_dlt_solver_is_the_same_on_other_blas_paths(dlt_batch, tmp_path,
+                                                    env):
+    """MKL picks its kernels once per process: a subprocess on another of
+    its code paths (the ones other hosts take) gives the same Gram matrices,
+    amplified matrices and pairs, bit for bit."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    A, M, _ = dlt_batch
+    np.save(tmp_path / "M.npy", M.numpy())
+    code = (
+        "import sys, numpy as np, torch\n"
+        "from mvslam_tpu_torch.math import fma, linalg as tla\n"
+        "M = torch.from_numpy(np.load(sys.argv[1]))\n"
+        "A = torch.from_numpy(np.load(sys.argv[3]))\n"
+        "v1, v2 = tla.smallest_eigvecs2_psd(M)\n"
+        "np.savez(sys.argv[2], two=torch.stack([v1, v2], -1).numpy(),\n"
+        "         B=tla._amplify(M, 24, fused=True).numpy(),\n"
+        "         gram=fma.fma_matmul(A.mT, A).numpy())\n")
+    np.save(tmp_path / "A.npy", A)
+    key, value = env.split("=")
+    repo = Path(__file__).resolve().parents[1]
+    proc = subprocess.run(
+        [sys.executable, "-c", code, str(tmp_path / "M.npy"),
+         str(tmp_path / "out.npz"), str(tmp_path / "A.npy")],
+        cwd=repo, env=dict(os.environ, **{key: value, "PYTHONPATH": str(repo)}),
+        capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    out = np.load(tmp_path / "out.npz")
+    np.testing.assert_array_equal(out["gram"], M.numpy())
+    np.testing.assert_array_equal(out["B"],
+                                  tla._amplify(M, 24, fused=True).numpy())
+    np.testing.assert_array_equal(out["two"], cs.solve_spans(M)["two"])
+
+
+@pytest.mark.parametrize("which", ["two", "one"])
+def test_dlt_solver_spans_eigh_subspace(which):
+    """Where float32 resolves the bottom subspace, the solver spans float64
+    eigh's: a PSD batch with eigenvalues (0, 1e-10, 1e-3, ...) of its scale
+    for the pair, (0, 0.05, ...) for the one vector (24 squarings separate
+    a ratio of 1e-3, 12 one of 0.05), rounded to float32. The bound is the
+    float32 rounding of the matrix over the gap (measured 1.5e-4 and 2.1e-6
+    radians); JAX's float32 result meets it too."""
+    M32 = cs.separated_psd(which)
+    k = 2 if which == "two" else 1
+    ref = np.linalg.eigh(M32.astype(np.float64))[1][..., :k]
+    got = cs.solve_spans(torch.from_numpy(M32))[which]
+    bound = cs.SOLVER_EIGH_ANGLE[which]
+    assert cs.span_angle(got, ref).max() < bound
+    if which == "two":
+        j1, j2 = jax.jit(jla.smallest_eigvecs2_psd)(M32)
+        jx = np.stack([np.asarray(j1), np.asarray(j2)], -1)
+    else:
+        jx = np.asarray(jax.jit(jla.smallest_eigvec_psd)(M32))[..., None]
+    assert cs.span_angle(jx, ref).max() < bound

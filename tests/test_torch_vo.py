@@ -69,6 +69,11 @@ def runs():
     tf = torch.tensor(FOCAL, dtype=torch.float32)
     j_outs, t_outs = [], []
     for k in range(n):
+        # the draws follow JAX's mode: a port in another mode would take
+        # draws of the wrong shape, so name the frame where the two part
+        assert int(tstate.mode) == int(js.mode), (
+            f"frame {k}: the port enters in mode {int(tstate.mode)}, JAX "
+            f"in mode {int(js.mode)}")
         draws = _jax_draws(js, jp)
         js, jo = jstep(js, jnp.asarray(frames[k]), jK, jf)
         tstate, to = tstep(tstate, torch.from_numpy(frames[k]), tK, tf,
