@@ -42,12 +42,28 @@ from mvslam_tpu_torch.ops.features import OrbParams, orb_detect
 from mvslam_tpu_torch.utils.indexing import allocate_slots as _allocate_slots
 from mvslam_tpu_torch.utils.indexing import masked_take as _masked_take
 from mvslam_tpu_torch.utils.indexing import set_rows as _set_rows
+from mvslam_tpu_torch.utils.timing import span
 
 Tensor = torch.Tensor
 
 MODE_EMPTY = 0
 MODE_INITIALIZING = 1
 MODE_TRACKING = 2
+
+#: the step's spans (``utils.timing.span``: in a profiler's trace only), in
+#: the order a frame opens them: the feature half and its two parts; the
+#: state half, which reads the mode and runs one branch; TRACKING's six
+#: stages; INITIALIZING's three; the first frame's
+SPANS = (
+    "vo_jit.pre", "vo_jit.pre.orb", "vo_jit.pre.templates",
+    "vo_jit.combine",
+    "vo_jit.track", "vo_jit.track.associate", "vo_jit.track.pnp",
+    "vo_jit.track.triangulate", "vo_jit.track.ba", "vo_jit.track.gate",
+    "vo_jit.track.commit",
+    "vo_jit.init", "vo_jit.init.slots", "vo_jit.init.refine",
+    "vo_jit.init.seed",
+    "vo_jit.empty",
+)
 
 
 class VoJitParams(NamedTuple):
@@ -242,12 +258,15 @@ def _make_vo_step_fns(params: VoJitParams = VoJitParams()):
 
     # ---- shared per-frame preprocessing -----------------------------------
     def preprocess(image: Tensor, K_inv: Tensor, focal):
-        feats = orb_detect(image, p.orb)
-        rays = _to_rays(feats.xy, K_inv)
-        smooth = klt.smooth_image(image)
-        tmpl = klt.extract_templates(smooth, feats.xy)
-        return _FrameArrays(feats.xy, feats.desc, feats.mask, rays,
-                            feats.sigma / focal, tmpl), smooth
+        with span("vo_jit.pre"):
+            with span("vo_jit.pre.orb"):
+                feats = orb_detect(image, p.orb)
+            with span("vo_jit.pre.templates"):
+                rays = _to_rays(feats.xy, K_inv)
+                smooth = klt.smooth_image(image)
+                tmpl = klt.extract_templates(smooth, feats.xy)
+            return _FrameArrays(feats.xy, feats.desc, feats.mask, rays,
+                                feats.sigma / focal, tmpl), smooth
 
     def _out(state, success, mode, pose_R, pose_t, num_inliers, mean_error,
              pnp_t, init_tried) -> VoStepOut:
@@ -282,9 +301,6 @@ def _make_vo_step_fns(params: VoJitParams = VoJitParams()):
         when the refined-error gate fails)."""
         dtype, dev = state.pose_t.dtype, state.pose_t.device
         B = p.init_window
-        if draws is None:
-            draws = torch.rand((B, p.ransac_hypotheses, K_feat),
-                               generator=state.generator, device=dev)
         thr_sq = p.max_error_sq / (focal * focal)
 
         def try_slot(b):
@@ -325,16 +341,20 @@ def _make_vo_step_fns(params: VoJitParams = VoJitParams()):
                         inlier_mask=rr.inlier_mask, m_idx=m.idx, r2=r2,
                         obs_sigma=obs_sigma, klt_valid=klt_valid, n_inl=n_inl)
 
-        slots = [try_slot(b) for b in range(B)]
-        cand = {k: torch.stack([s[k] for s in slots]) for k in slots[0]}
-        ok_b = cand["ok"] & state.rb_valid
-        age = state.step - state.rb_step
-        score = torch.where(ok_b, age, torch.full_like(age, -1))
-        # slots ranked oldest-passing first (failing slots sort last)
-        order = torch.sort(-score, stable=True).indices
-        n_ok = torch.sum(ok_b)
-        host = torch.cat([n_ok.view(1), order]).tolist()
-        n_ok, order = host[0], host[1:]
+        with span("vo_jit.init.slots"):
+            if draws is None:
+                draws = torch.rand((B, p.ransac_hypotheses, K_feat),
+                                   generator=state.generator, device=dev)
+            slots = [try_slot(b) for b in range(B)]
+            cand = {k: torch.stack([s[k] for s in slots]) for k in slots[0]}
+            ok_b = cand["ok"] & state.rb_valid
+            age = state.step - state.rb_step
+            score = torch.where(ok_b, age, torch.full_like(age, -1))
+            # slots ranked oldest-passing first (failing slots sort last)
+            order = torch.sort(-score, stable=True).indices
+            n_ok = torch.sum(ok_b)
+            host = torch.cat([n_ok.view(1), order]).tolist()
+            n_ok, order = host[0], host[1:]
 
         def refine_slot(b):
             """One Sampson polish + LM refine of ring slot ``b``; returns
@@ -369,72 +389,76 @@ def _make_vo_step_fns(params: VoJitParams = VoJitParams()):
                                 point_info=ref.point_information,
                                 point_mask=point_mask, mean_err=mean_err)
 
-        # Walk the ranked slots until one passes the refined-error gate
-        # (one host read per slot; typically one slot).
-        b = order[0]
-        sel = dict({k: v[b] for k, v in cand.items()},
-                   points=torch.zeros((K_feat, 3), dtype=dtype, device=dev),
-                   point_info=torch.zeros((K_feat, 3, 3), dtype=dtype,
+        with span("vo_jit.init.refine"):
+            # Walk the ranked slots until one passes the refined-error gate
+            # (one host read per slot; typically one slot).
+            b = order[0]
+            sel = dict({k: v[b] for k, v in cand.items()},
+                       points=torch.zeros((K_feat, 3), dtype=dtype,
                                           device=dev),
-                   point_mask=torch.zeros(K_feat, dtype=torch.bool,
-                                          device=dev),
-                   mean_err=torch.full((), math.inf, dtype=dtype, device=dev))
-        n_tried, any_ok = 0, False
-        for i in range(n_ok):
-            b = order[i]
-            passed, sel = refine_slot(b)
-            n_tried = i + 1
-            if bool(passed):
-                any_ok = True
-                break
+                       point_info=torch.zeros((K_feat, 3, 3), dtype=dtype,
+                                              device=dev),
+                       point_mask=torch.zeros(K_feat, dtype=torch.bool,
+                                              device=dev),
+                       mean_err=torch.full((), math.inf, dtype=dtype,
+                                           device=dev))
+            n_tried, any_ok = 0, False
+            for i in range(n_ok):
+                b = order[i]
+                passed, sel = refine_slot(b)
+                n_tried = i + 1
+                if bool(passed):
+                    any_ok = True
+                    break
 
-        if any_ok:
-            point_mask = sel["point_mask"]
-            # seed map: slot i <- base feature i (masked); the selected ring
-            # frame becomes the world frame
-            ar = torch.arange(K_feat, dtype=torch.int32, device=dev)
+        with span("vo_jit.init.seed"):
+            if any_ok:
+                point_mask = sel["point_mask"]
+                # seed map: slot i <- base feature i (masked); the selected
+                # ring frame becomes the world frame
+                ar = torch.arange(K_feat, dtype=torch.int32, device=dev)
 
-            def seeded(shape, dt, head, fill=0):
-                out = torch.full(shape, fill, dtype=dt, device=dev)
-                out[:K_feat] = head
-                return out
+                def seeded(shape, dt, head, fill=0):
+                    out = torch.full(shape, fill, dtype=dt, device=dev)
+                    out[:K_feat] = head
+                    return out
 
-            step_or_none = torch.where(point_mask, state.step,
-                                       torch.full_like(ar, -1))
-            map_info_head = torch.where(point_mask[:, None, None],
-                                        sel["point_info"],
-                                        torch.zeros_like(sel["point_info"]))
-            # association for the new frame: feature m_idx[i] -> slot i
-            write_to = torch.where(point_mask, sel["m_idx"],
-                                   torch.full_like(sel["m_idx"], K_feat))
-            assoc = _set_rows(torch.full((K_feat,), -1, dtype=torch.int32,
-                                         device=dev),
-                              write_to, torch.where(point_mask, ar,
-                                                    torch.full_like(ar, -1)))
-            has = (assoc >= 0)
-            obs_rays = _set_rows(torch.zeros_like(f.rays), write_to,
-                                 sel["r2"])
-            obs_rays = torch.where(has[:, None], obs_rays, f.rays)
-            obs_sig = _set_rows(torch.ones_like(f.sigma), write_to,
-                                sel["obs_sigma"])
-            obs_sig = torch.where(has, obs_sig, f.sigma)
-            ns = _store_frame(state, f, obs_rays=obs_rays, obs_sigma=obs_sig,
-                              assoc=assoc)._replace(
-                mode=torch.full_like(state.mode, MODE_TRACKING),
-                pose_R=sel["R"], pose_t=sel["t"],
-                map_pos=seeded((M, 3), dtype, sel["points"]),
-                map_desc=seeded((M, 8), torch.int32, state.rb_desc[b]),
-                map_tmpl=seeded((M,) + state.rb_tmpl.shape[2:], dtype,
-                                state.rb_tmpl[b]),
-                map_valid=seeded((M,), torch.bool, point_mask, False),
-                map_seen=seeded((M,), torch.int32, step_or_none, -1),
-                map_info=seeded((M, 3, 3), dtype, map_info_head),
-                frame_tracked=state.frame_tracked + 1,
-            )
-            new_state = _ring_clear(ns)
-        else:
-            # slide the window: the new frame joins the ring
-            new_state = _ring_push(_store_frame(state, f), f)
+                step_or_none = torch.where(point_mask, state.step,
+                                           torch.full_like(ar, -1))
+                map_info_head = torch.where(
+                    point_mask[:, None, None], sel["point_info"],
+                    torch.zeros_like(sel["point_info"]))
+                # association for the new frame: feature m_idx[i] -> slot i
+                write_to = torch.where(point_mask, sel["m_idx"],
+                                       torch.full_like(sel["m_idx"], K_feat))
+                assoc = _set_rows(
+                    torch.full((K_feat,), -1, dtype=torch.int32, device=dev),
+                    write_to,
+                    torch.where(point_mask, ar, torch.full_like(ar, -1)))
+                has = (assoc >= 0)
+                obs_rays = _set_rows(torch.zeros_like(f.rays), write_to,
+                                     sel["r2"])
+                obs_rays = torch.where(has[:, None], obs_rays, f.rays)
+                obs_sig = _set_rows(torch.ones_like(f.sigma), write_to,
+                                    sel["obs_sigma"])
+                obs_sig = torch.where(has, obs_sig, f.sigma)
+                ns = _store_frame(state, f, obs_rays=obs_rays,
+                                  obs_sigma=obs_sig, assoc=assoc)._replace(
+                    mode=torch.full_like(state.mode, MODE_TRACKING),
+                    pose_R=sel["R"], pose_t=sel["t"],
+                    map_pos=seeded((M, 3), dtype, sel["points"]),
+                    map_desc=seeded((M, 8), torch.int32, state.rb_desc[b]),
+                    map_tmpl=seeded((M,) + state.rb_tmpl.shape[2:], dtype,
+                                    state.rb_tmpl[b]),
+                    map_valid=seeded((M,), torch.bool, point_mask, False),
+                    map_seen=seeded((M,), torch.int32, step_or_none, -1),
+                    map_info=seeded((M, 3, 3), dtype, map_info_head),
+                    frame_tracked=state.frame_tracked + 1,
+                )
+                new_state = _ring_clear(ns)
+            else:
+                # slide the window: the new frame joins the ring
+                new_state = _ring_push(_store_frame(state, f), f)
         out = _out(state, any_ok, new_state.mode, new_state.pose_R,
                    new_state.pose_t, sel["n_inl"], sel["mean_err"], sel["t"],
                    n_tried)
@@ -443,171 +467,190 @@ def _make_vo_step_fns(params: VoJitParams = VoJitParams()):
     # ---- mode 2: tracking --------------------------------------------------
     def do_track(state, f, smooth, K_inv, focal, draws):
         dtype, dev = state.pose_t.dtype, state.pose_t.device
-        # 1) associate to map + KLT against map templates
-        m = matching.match_features(f.desc, f.mask, state.map_desc,
-                                    state.map_valid, p.max_match_distance)
-        if p.use_klt:
-            kr = klt.klt_track(state.map_tmpl[m.idx], smooth, f.xy, m.mask)
-            obs_xy = kr.xy
-            obs_sigma = torch.where(kr.valid, p.klt_sigma_px / focal, f.sigma)
-        else:
-            obs_xy, obs_sigma = f.xy, f.sigma
-        obs_rays = _to_rays(obs_xy, K_inv)
-        map_pts = state.map_pos[m.idx]
-        # 2) P3P-RANSAC
-        thr = p.pnp_reproj_px / focal
-        pose0, best_inl = pnp.pnp_ransac_core(
-            map_pts, obs_rays, m.mask, p.pnp_hypotheses, thr * thr,
-            generator=state.generator, uniforms=draws)
-        n_inl = torch.sum(best_inl).to(torch.int32)
+        with span("vo_jit.track.associate"):
+            # 1) associate to map + KLT against map templates
+            m = matching.match_features(f.desc, f.mask, state.map_desc,
+                                        state.map_valid, p.max_match_distance)
+            if p.use_klt:
+                kr = klt.klt_track(state.map_tmpl[m.idx], smooth, f.xy, m.mask)
+                obs_xy = kr.xy
+                obs_sigma = torch.where(kr.valid, p.klt_sigma_px / focal,
+                                        f.sigma)
+            else:
+                obs_xy, obs_sigma = f.xy, f.sigma
+            obs_rays = _to_rays(obs_xy, K_inv)
+            map_pts = state.map_pos[m.idx]
+        with span("vo_jit.track.pnp"):
+            # 2) P3P-RANSAC
+            thr = p.pnp_reproj_px / focal
+            pose0, best_inl = pnp.pnp_ransac_core(
+                map_pts, obs_rays, m.mask, p.pnp_hypotheses, thr * thr,
+                generator=state.generator, uniforms=draws)
+            n_inl = torch.sum(best_inl).to(torch.int32)
 
-        # 3) triangulate new points vs previous frame
-        lm = matching.match_features(state.lf_desc, state.lf_mask, f.desc,
-                                     f.mask, p.max_match_distance)
-        feat = torch.arange(K_feat, device=dev)
-        new_assoc_of_new_feat = _set_rows(
-            torch.full((K_feat,), -1, dtype=torch.int64, device=dev),
-            torch.where(m.mask, feat, torch.full_like(feat, K_feat)), m.idx)
-        lm_ok = lm.mask & (new_assoc_of_new_feat[lm.idx] < 0)
-        if p.use_klt:
-            kr2 = klt.klt_track(state.lf_tmpl, smooth, f.xy[lm.idx], lm_ok)
-            xy_new = kr2.xy
-            sig_new = torch.where(kr2.valid, p.klt_sigma_px / focal,
-                                  f.sigma[lm.idx])
-        else:
-            xy_new, sig_new = f.xy[lm.idx], f.sigma[lm.idx]
-        r_new = _to_rays(xy_new, K_inv)
-        last_pose = SE3(state.pose_R, state.pose_t)
-        rel = last_pose.inverse().compose(pose0)
-        pts_last, tri_mask = sfm.sfm_triangulate(state.lf_rays, r_new, lm_ok,
-                                                 rel)
-        # consistency gate on fresh triangulations: reproject onto BOTH rays
-        eye = SE3(torch.eye(3, dtype=dtype, device=dev),
-                  torch.zeros(3, dtype=dtype, device=dev))
-        e_last = pnp.reprojection_error_sq(eye, pts_last, state.lf_rays)
-        e_new = pnp.reprojection_error_sq(rel, pts_last, r_new)
-        tri_thr = (p.tri_consistency_px / focal) ** 2
-        tri_mask = tri_mask & (e_last < tri_thr) & (e_new < tri_thr)
-        pts_world = last_pose.apply(pts_last)
+        with span("vo_jit.track.triangulate"):
+            # 3) triangulate new points vs previous frame
+            lm = matching.match_features(state.lf_desc, state.lf_mask, f.desc,
+                                         f.mask, p.max_match_distance)
+            feat = torch.arange(K_feat, device=dev)
+            new_assoc_of_new_feat = _set_rows(
+                torch.full((K_feat,), -1, dtype=torch.int64, device=dev),
+                torch.where(m.mask, feat, torch.full_like(feat, K_feat)),
+                m.idx)
+            lm_ok = lm.mask & (new_assoc_of_new_feat[lm.idx] < 0)
+            if p.use_klt:
+                kr2 = klt.klt_track(state.lf_tmpl, smooth, f.xy[lm.idx], lm_ok)
+                xy_new = kr2.xy
+                sig_new = torch.where(kr2.valid, p.klt_sigma_px / focal,
+                                      f.sigma[lm.idx])
+            else:
+                xy_new, sig_new = f.xy[lm.idx], f.sigma[lm.idx]
+            r_new = _to_rays(xy_new, K_inv)
+            last_pose = SE3(state.pose_R, state.pose_t)
+            rel = last_pose.inverse().compose(pose0)
+            pts_last, tri_mask = sfm.sfm_triangulate(state.lf_rays, r_new,
+                                                     lm_ok, rel)
+            # consistency gate on fresh triangulations: reproject onto BOTH
+            # rays
+            eye = SE3(torch.eye(3, dtype=dtype, device=dev),
+                      torch.zeros(3, dtype=dtype, device=dev))
+            e_last = pnp.reprojection_error_sq(eye, pts_last, state.lf_rays)
+            e_new = pnp.reprojection_error_sq(rel, pts_last, r_new)
+            tri_thr = (p.tri_consistency_px / focal) ** 2
+            tri_mask = tri_mask & (e_last < tri_thr) & (e_new < tri_thr)
+            pts_world = last_pose.apply(pts_last)
 
-        # 4) two-frame BA with fixed capacities; fresh triangulations ranked
-        # by their two-ray consistency residual
-        old_idx, old_ok = _masked_take(m.mask & best_inl, p.ba_old)
-        tri_score = torch.where(tri_mask, e_last + e_new,
-                                torch.full_like(e_last, math.inf))
-        new_idx = torch.sort(tri_score, stable=True).indices[: p.ba_new]
-        new_ok = tri_mask[new_idx]
-        obs_slots = m.idx[old_idx]                       # map slots
-        # last-frame observation of those slots (reverse assoc)
-        lf_map_to_feat = _set_rows(
-            torch.full((M,), -1, dtype=torch.int64, device=dev),
-            torch.where(state.lf_assoc >= 0, state.lf_assoc,
-                        torch.full_like(state.lf_assoc, M)), feat)
-        lf_feat = lf_map_to_feat[obs_slots]
-        lf_seen = (lf_feat >= 0) & old_ok
-        safe_lf = torch.clamp(lf_feat, min=0)
-        nf = lm.idx[new_idx]                             # new-frame feature
+        with span("vo_jit.track.ba"):
+            # 4) two-frame BA with fixed capacities; fresh triangulations
+            # ranked by their two-ray consistency residual
+            old_idx, old_ok = _masked_take(m.mask & best_inl, p.ba_old)
+            tri_score = torch.where(tri_mask, e_last + e_new,
+                                    torch.full_like(e_last, math.inf))
+            new_idx = torch.sort(tri_score, stable=True).indices[: p.ba_new]
+            new_ok = tri_mask[new_idx]
+            obs_slots = m.idx[old_idx]                       # map slots
+            # last-frame observation of those slots (reverse assoc)
+            lf_map_to_feat = _set_rows(
+                torch.full((M,), -1, dtype=torch.int64, device=dev),
+                torch.where(state.lf_assoc >= 0, state.lf_assoc,
+                            torch.full_like(state.lf_assoc, M)), feat)
+            lf_feat = lf_map_to_feat[obs_slots]
+            lf_seen = (lf_feat >= 0) & old_ok
+            safe_lf = torch.clamp(lf_feat, min=0)
+            nf = lm.idx[new_idx]                         # new-frame feature
 
-        pts0 = torch.cat([state.map_pos[obs_slots], pts_world[new_idx]])
-        obs = torch.stack([
-            torch.cat([state.lf_obs_rays[safe_lf, :2],
-                       state.lf_rays[new_idx, :2]]),
-            torch.cat([obs_rays[old_idx, :2], r_new[new_idx, :2]]),
-        ])
-        obs_mask_ba = torch.stack([torch.cat([lf_seen, new_ok]),
-                                   torch.cat([old_ok, new_ok])])
-        # last-frame obs of new points = template centers (exact by
-        # construction, see template_sigma_px)
-        w_tmpl = (torch.zeros(p.ba_new, dtype=dtype, device=dev)
-                  + focal / p.template_sigma_px)
-        weight = torch.stack([
-            torch.cat([1.0 / state.lf_obs_sigma[safe_lf], w_tmpl]),
-            torch.cat([1.0 / obs_sigma[old_idx], 1.0 / sig_new[new_idx]]),
-        ])
-        # old points carry their recursive landmark information
-        stored_info = state.map_info[obs_slots]
-        has_info = torch.diagonal(stored_info, dim1=-2, dim2=-1).sum(-1) > 0
-        iso = torch.eye(3, dtype=dtype, device=dev) / (p.map_point_stddev ** 2)
-        old_info = torch.where(has_info[:, None, None], stored_info, iso)
-        point_info = torch.cat([
-            torch.where(old_ok[:, None, None], old_info,
-                        torch.zeros_like(old_info)),
-            torch.zeros((p.ba_new, 3, 3), dtype=dtype, device=dev)])
-        poses0 = SE3(torch.stack([state.pose_R, pose0.R]),
-                     torch.stack([state.pose_t, pose0.t]))
-        pose_prior_info = torch.stack([
-            1e10 * torch.eye(6, dtype=dtype, device=dev),
-            torch.zeros((6, 6), dtype=dtype, device=dev)])
-        prob = ba_mod.BAProblem.create(
-            poses0=poses0, points0=pts0, obs=obs, obs_mask=obs_mask_ba,
-            obs_weight=weight, pose_prior=poses0,
-            pose_prior_info=pose_prior_info, point_prior=pts0,
-            point_prior_info=point_info)
-        result = ba_mod.ba_solve(prob, ba_params)
-        n_obs = torch.clamp(torch.sum(obs_mask_ba), min=1)
-        mean_err = 2.0 * result.error / n_obs.to(dtype)
-        pose = SE3(result.poses.R[1], result.poses.t[1])
-        ok = ((n_inl >= p.min_track_inliers)
-              & (mean_err <= p.max_track_mean_error)
-              & torch.all(torch.isfinite(pose.t)))
-        ok = bool(ok)
-        if ok:
-            pts_ref = result.points
-            info_ref = result.point_information
-            w_old = torch.where(old_ok, obs_slots, torch.full_like(obs_slots, M))
-            map_pos = _set_rows(state.map_pos, w_old, pts_ref[: p.ba_old])
-            map_info = _set_rows(state.map_info, w_old, info_ref[: p.ba_old])
-            map_seen = _set_rows(state.map_seen, w_old, state.step)
-            slots_new = _allocate_slots(state.map_valid, map_seen, p.ba_new)
-            w_new = torch.where(new_ok, slots_new,
-                                torch.full_like(slots_new, M))
-            map_pos = _set_rows(map_pos, w_new, pts_ref[p.ba_old:])
-            map_desc = _set_rows(state.map_desc, w_new, f.desc[nf])
-            map_tmpl = _set_rows(state.map_tmpl, w_new,
-                                 state.lf_tmpl[new_idx])
-            map_valid = _set_rows(state.map_valid, w_new, True)
-            map_seen = _set_rows(map_seen, w_new, state.step)
-            map_info = _set_rows(map_info, w_new, info_ref[p.ba_old:])
-            # new-frame association + refined observations
-            w_oldfeat = torch.where(old_ok, old_idx,
-                                    torch.full_like(old_idx, K_feat))
-            w_nf = torch.where(new_ok, nf, torch.full_like(nf, K_feat))
-            assoc = torch.full((K_feat,), -1, dtype=torch.int32, device=dev)
-            assoc = _set_rows(assoc, w_oldfeat, obs_slots)
-            assoc = _set_rows(assoc, w_nf, slots_new)
-            o_rays = _set_rows(f.rays, w_oldfeat, obs_rays[old_idx])
-            o_rays = _set_rows(o_rays, w_nf, r_new[new_idx])
-            o_sig = _set_rows(f.sigma, w_oldfeat, obs_sigma[old_idx])
-            o_sig = _set_rows(o_sig, w_nf, sig_new[new_idx])
-            new_state = _store_frame(
-                state, f, obs_rays=o_rays, obs_sigma=o_sig, assoc=assoc
-            )._replace(
-                pose_R=pose.R, pose_t=pose.t,
-                map_pos=map_pos, map_desc=map_desc, map_tmpl=map_tmpl,
-                map_valid=map_valid, map_seen=map_seen, map_info=map_info,
-                frame_tracked=state.frame_tracked + 1,
-            )
-        else:
-            # back to INITIALIZING keeping the new frame (reference reset)
-            ns = _store_frame(state, f)._replace(
-                mode=torch.full_like(state.mode, MODE_INITIALIZING),
-                map_valid=torch.zeros_like(state.map_valid),
-                map_seen=torch.full_like(state.map_seen, -1),
-                map_info=torch.zeros_like(state.map_info),
-            )
-            new_state = _ring_push(_ring_clear(ns), f)
+            pts0 = torch.cat([state.map_pos[obs_slots], pts_world[new_idx]])
+            obs = torch.stack([
+                torch.cat([state.lf_obs_rays[safe_lf, :2],
+                           state.lf_rays[new_idx, :2]]),
+                torch.cat([obs_rays[old_idx, :2], r_new[new_idx, :2]]),
+            ])
+            obs_mask_ba = torch.stack([torch.cat([lf_seen, new_ok]),
+                                       torch.cat([old_ok, new_ok])])
+            # last-frame obs of new points = template centers (exact by
+            # construction, see template_sigma_px)
+            w_tmpl = (torch.zeros(p.ba_new, dtype=dtype, device=dev)
+                      + focal / p.template_sigma_px)
+            weight = torch.stack([
+                torch.cat([1.0 / state.lf_obs_sigma[safe_lf], w_tmpl]),
+                torch.cat([1.0 / obs_sigma[old_idx], 1.0 / sig_new[new_idx]]),
+            ])
+            # old points carry their recursive landmark information
+            stored_info = state.map_info[obs_slots]
+            has_info = torch.diagonal(stored_info, dim1=-2,
+                                      dim2=-1).sum(-1) > 0
+            iso = (torch.eye(3, dtype=dtype, device=dev)
+                   / (p.map_point_stddev ** 2))
+            old_info = torch.where(has_info[:, None, None], stored_info, iso)
+            point_info = torch.cat([
+                torch.where(old_ok[:, None, None], old_info,
+                            torch.zeros_like(old_info)),
+                torch.zeros((p.ba_new, 3, 3), dtype=dtype, device=dev)])
+            poses0 = SE3(torch.stack([state.pose_R, pose0.R]),
+                         torch.stack([state.pose_t, pose0.t]))
+            pose_prior_info = torch.stack([
+                1e10 * torch.eye(6, dtype=dtype, device=dev),
+                torch.zeros((6, 6), dtype=dtype, device=dev)])
+            prob = ba_mod.BAProblem.create(
+                poses0=poses0, points0=pts0, obs=obs, obs_mask=obs_mask_ba,
+                obs_weight=weight, pose_prior=poses0,
+                pose_prior_info=pose_prior_info, point_prior=pts0,
+                point_prior_info=point_info)
+            result = ba_mod.ba_solve(prob, ba_params)
+        with span("vo_jit.track.gate"):
+            n_obs = torch.clamp(torch.sum(obs_mask_ba), min=1)
+            mean_err = 2.0 * result.error / n_obs.to(dtype)
+            pose = SE3(result.poses.R[1], result.poses.t[1])
+            ok = ((n_inl >= p.min_track_inliers)
+                  & (mean_err <= p.max_track_mean_error)
+                  & torch.all(torch.isfinite(pose.t)))
+            ok = bool(ok)
+        with span("vo_jit.track.commit"):
+            if ok:
+                pts_ref = result.points
+                info_ref = result.point_information
+                w_old = torch.where(old_ok, obs_slots,
+                                    torch.full_like(obs_slots, M))
+                map_pos = _set_rows(state.map_pos, w_old, pts_ref[: p.ba_old])
+                map_info = _set_rows(state.map_info, w_old,
+                                     info_ref[: p.ba_old])
+                map_seen = _set_rows(state.map_seen, w_old, state.step)
+                slots_new = _allocate_slots(state.map_valid, map_seen,
+                                            p.ba_new)
+                w_new = torch.where(new_ok, slots_new,
+                                    torch.full_like(slots_new, M))
+                map_pos = _set_rows(map_pos, w_new, pts_ref[p.ba_old:])
+                map_desc = _set_rows(state.map_desc, w_new, f.desc[nf])
+                map_tmpl = _set_rows(state.map_tmpl, w_new,
+                                     state.lf_tmpl[new_idx])
+                map_valid = _set_rows(state.map_valid, w_new, True)
+                map_seen = _set_rows(map_seen, w_new, state.step)
+                map_info = _set_rows(map_info, w_new, info_ref[p.ba_old:])
+                # new-frame association + refined observations
+                w_oldfeat = torch.where(old_ok, old_idx,
+                                        torch.full_like(old_idx, K_feat))
+                w_nf = torch.where(new_ok, nf, torch.full_like(nf, K_feat))
+                assoc = torch.full((K_feat,), -1, dtype=torch.int32,
+                                   device=dev)
+                assoc = _set_rows(assoc, w_oldfeat, obs_slots)
+                assoc = _set_rows(assoc, w_nf, slots_new)
+                o_rays = _set_rows(f.rays, w_oldfeat, obs_rays[old_idx])
+                o_rays = _set_rows(o_rays, w_nf, r_new[new_idx])
+                o_sig = _set_rows(f.sigma, w_oldfeat, obs_sigma[old_idx])
+                o_sig = _set_rows(o_sig, w_nf, sig_new[new_idx])
+                new_state = _store_frame(
+                    state, f, obs_rays=o_rays, obs_sigma=o_sig, assoc=assoc
+                )._replace(
+                    pose_R=pose.R, pose_t=pose.t,
+                    map_pos=map_pos, map_desc=map_desc, map_tmpl=map_tmpl,
+                    map_valid=map_valid, map_seen=map_seen, map_info=map_info,
+                    frame_tracked=state.frame_tracked + 1,
+                )
+            else:
+                # back to INITIALIZING keeping the new frame (reference reset)
+                ns = _store_frame(state, f)._replace(
+                    mode=torch.full_like(state.mode, MODE_INITIALIZING),
+                    map_valid=torch.zeros_like(state.map_valid),
+                    map_seen=torch.full_like(state.map_seen, -1),
+                    map_info=torch.zeros_like(state.map_info),
+                )
+                new_state = _ring_push(_ring_clear(ns), f)
         out = _out(state, ok, new_state.mode, new_state.pose_R,
                    new_state.pose_t, n_inl, mean_err, pose0.t, 0)
         return new_state, out
 
-    branches = {MODE_EMPTY: do_empty, MODE_INITIALIZING: do_init,
-                MODE_TRACKING: do_track}
+    branches = {MODE_EMPTY: (do_empty, "vo_jit.empty"),
+                MODE_INITIALIZING: (do_init, "vo_jit.init"),
+                MODE_TRACKING: (do_track, "vo_jit.track")}
 
     def combine_fn(state: VoJitState, f: _FrameArrays, smooth: Tensor,
                    K_inv: Tensor, focal, draws: Tensor | None = None):
-        state = state._replace(step=state.step + 1,
-                               frame_total=state.frame_total + 1)
-        return branches[int(state.mode)](state, f, smooth, K_inv, focal, draws)
+        with span("vo_jit.combine"):
+            state = state._replace(step=state.step + 1,
+                                   frame_total=state.frame_total + 1)
+            branch, name = branches[int(state.mode)]
+            with span(name):
+                return branch(state, f, smooth, K_inv, focal, draws)
 
     def step_fn(state: VoJitState, image: Tensor, K_inv: Tensor, focal,
                 draws: Tensor | None = None):

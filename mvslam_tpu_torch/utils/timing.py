@@ -1,10 +1,11 @@
-"""Timing: the host's monotonic clock and stage timers (copies of
-``mvslam_tpu.utils.timing``), and timing on the card: eager time and
-device time of a launch, and where a piece of code synchronises with the
-device.
+"""Timing: the host's monotonic clock (a copy of
+``mvslam_tpu.utils.timing``'s), spans for the profiler's trace, and timing
+on the card: eager time and device time of a launch, and where a piece of
+code synchronises with the device.
 
-``get_time_ms``/``get_time_us`` count from the module's import,
-``StageTimers`` accumulates wall-clock time per named stage. The card's
+``get_time_ms``/``get_time_us`` count from the module's import. ``span``
+marks a stage of the program in ``torch.profiler``'s trace while a profiler
+records, and costs one check otherwise. The card's
 helpers need a CUDA device and raise without one. ``cuda_ms`` times
 ``fn`` as the host issues it (Python, allocator and launch included, so a
 short kernel shows the host's issue rate). ``graph_ms`` captures ``fn``
@@ -23,8 +24,7 @@ import contextlib
 import os
 import time
 import warnings
-from collections import defaultdict
-from typing import Callable, Dict
+from typing import Callable
 
 import torch
 
@@ -45,32 +45,22 @@ def sleep_ms(ms: float) -> None:
     time.sleep(ms / 1e3)
 
 
-class StageTimers:
-    """Accumulating per-stage wall-clock timers for pipeline observability."""
+_NO_SPAN = contextlib.nullcontext()
 
-    def __init__(self) -> None:
-        self.total_s: Dict[str, float] = defaultdict(float)
-        self.count: Dict[str, int] = defaultdict(int)
 
-    @contextlib.contextmanager
-    def stage(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            dt = time.perf_counter() - t0
-            self.total_s[name] += dt
-            self.count[name] += 1
-
-    def summary(self) -> Dict[str, Dict[str, float]]:
-        return {
-            name: {
-                "total_s": self.total_s[name],
-                "count": self.count[name],
-                "mean_ms": 1e3 * self.total_s[name] / max(1, self.count[name]),
-            }
-            for name in self.total_s
-        }
+def span(name: str):
+    """A context manager that marks a stage named ``name``. While a
+    ``torch.profiler`` records, it is a record function of the profiler's
+    own op kind (``_RecordFunctionFast``): a host op in the trace, on the
+    calling thread, on the clock the profiler gives the device's events,
+    inside the span that encloses it there. ``record_function``'s user
+    annotations are not used: the profiler mirrors them on the device's
+    timeline, where a torch that gives its events no activity type cannot
+    tell them from kernels. Otherwise the span is one shared null context,
+    which adds no work to the stage."""
+    if torch.autograd._profiler_enabled():
+        return torch._C._profiler._RecordFunctionFast(name)
+    return _NO_SPAN
 
 
 def _between_events(fn: Callable[[], object], reps: int) -> float:

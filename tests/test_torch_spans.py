@@ -1,0 +1,113 @@
+"""The tracker step's spans (``vo_jit.SPANS``, ``utils.timing.span``) on the
+CPU: under ``torch.profiler`` a run that bootstraps and then tracks gives
+every span, nested and in the order ``vo_jit.py`` lists them, and the spans
+change nothing the tracker computes: poses, modes and state are bit-equal
+with the profiler on and off, same seed and same draws.
+
+4 frames of the two-plane scene (240x320, focal 280, slanted background)
+at small capacities: EMPTY, INITIALIZING (bootstraps), TRACKING twice.
+"""
+
+import numpy as np
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from mvslam_tpu_torch.frontend import vo_jit
+from mvslam_tpu_torch.ops.features import OrbParams
+from mvslam_tpu_torch.utils.scene import render_planes_sequence
+
+from test_torch_ref_common import one_torch_thread  # noqa: F401 (autouse)
+
+H, W, FOCAL = 240, 320, 280.0
+N_FRAMES = 4
+PARAMS = vo_jit.VoJitParams(orb=OrbParams(max_features=256),
+                            map_capacity=512, ransac_hypotheses=128,
+                            pnp_hypotheses=64, ba_old=192, ba_new=64)
+#: a span's parent: the span that holds it on the host
+PARENT = {"vo_jit.pre": None, "vo_jit.combine": None,
+          "vo_jit.empty": "vo_jit.combine", "vo_jit.init": "vo_jit.combine",
+          "vo_jit.track": "vo_jit.combine"}
+
+
+def _parent(name):
+    if name in PARENT:
+        return PARENT[name]
+    return name.rsplit(".", 1)[0]
+
+
+def _run(profiled):
+    i = np.arange(N_FRAMES)
+    ts = np.stack([i * 0.12, 0.02 * np.sin(i * 0.25), np.zeros(N_FRAMES)],
+                  1)
+    frames = render_planes_sequence(ts, h=H, w=W, focal=FOCAL, bg_slope=0.18)
+    K_inv = torch.tensor(np.linalg.inv(
+        [[FOCAL, 0, (W - 1) / 2], [0, FOCAL, (H - 1) / 2], [0, 0, 1]]),
+        dtype=torch.float32)
+    step = vo_jit.make_vo_step(PARAMS)
+    state = vo_jit.vo_init_state(PARAMS, device="cpu", seed=1)
+    states, outs, events = [], [], None
+
+    def run():
+        nonlocal state
+        for k in range(N_FRAMES):
+            state, out = step(state, torch.from_numpy(frames[k]), K_inv,
+                              torch.tensor(FOCAL))
+            states.append(state)
+            outs.append(out)
+
+    if profiled:
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            run()
+        events = prof.profiler.kineto_results.events()
+    else:
+        run()
+    return states, outs, events
+
+
+@pytest.fixture(scope="module")
+def runs():
+    return _run(False), _run(True)
+
+
+def test_spans_nest_in_the_listed_order(runs):
+    _, (_, outs, events) = runs
+    assert [int(o.mode) for o in outs] == [
+        vo_jit.MODE_INITIALIZING] + [vo_jit.MODE_TRACKING] * 3
+    spans = sorted(((e.start_ns(), -e.duration_ns(), e.name(),
+                     e.start_ns() + e.duration_ns()) for e in events
+                    if e.name().startswith("vo_jit.")))
+    assert {s[2] for s in spans} == set(vo_jit.SPANS)
+    # one frame per "vo_jit.pre"; each frame's spans in the listed order
+    frames, stack = [], []
+    for a, _, name, b in spans:
+        while stack and stack[-1][1] <= a:
+            stack.pop()
+        assert (stack[-1][0] if stack else None) == _parent(name), name
+        assert not stack or b <= stack[-1][1], name
+        if name == "vo_jit.pre":
+            frames.append([])
+        frames[-1].append(name)
+        stack.append((name, b))
+    head = ["vo_jit.pre", "vo_jit.pre.orb", "vo_jit.pre.templates",
+            "vo_jit.combine"]
+    track = [n for n in vo_jit.SPANS if n.startswith("vo_jit.track")]
+    init = [n for n in vo_jit.SPANS if n.startswith("vo_jit.init")]
+    assert frames == [head + ["vo_jit.empty"], head + init,
+                      head + track, head + track]
+    for names in frames:
+        assert [vo_jit.SPANS.index(n) for n in names] == sorted(
+            vo_jit.SPANS.index(n) for n in names)
+
+
+def test_profiler_changes_nothing_the_tracker_computes(runs):
+    (s_off, o_off, _), (s_on, o_on, _) = runs
+    assert len(s_off) == len(s_on) == N_FRAMES
+    for a, b in zip(s_off + o_off, s_on + o_on):
+        for x, y in zip(a, b):
+            if isinstance(x, torch.Generator):
+                x, y = x.get_state(), y.get_state()
+            assert x.dtype == y.dtype and x.shape == y.shape
+            # bits, so that a NaN equals itself
+            assert torch.equal(x.reshape(-1).view(torch.uint8),
+                               y.reshape(-1).view(torch.uint8))
