@@ -48,7 +48,7 @@ from chip_smoke import (
 )
 from mvslam_tpu_torch import convert
 from mvslam_tpu_torch.frontend.vo_jit import (
-    VoJitParams, make_vo_step, vo_init_state,
+    VoJitParams, _make_vo_step_fns, make_vo_step, vo_init_state,
 )
 from mvslam_tpu_torch.ops import ba, features_cuda
 from mvslam_tpu_torch.utils.scene import ellipse_loop, render_planes_sequence
@@ -127,8 +127,9 @@ def ba_cost_shares(prob: ba.BAProblem, res: ba.BAResult, n_old: int) -> str:
 
 def why_lost(frames, params, dev, seeds: int) -> None:
     """Per seed the frames lost, and the BA of the first one lost while
-    tracking, split by observation group."""
-    step = make_vo_step(params)
+    tracking, split by observation group. The step runs op by op (no CUDA
+    graphs), so that each BA goes through ``ba.ba_solve`` as it is called."""
+    step, _, _ = _make_vo_step_fns(params, cuda_graphs=False)
     K_inv = intrinsics_inv(dev, LOOP_H, LOOP_W, LOOP_FOCAL)
     images = torch.from_numpy(frames).to(dev)
     solved = []
@@ -159,9 +160,10 @@ def why_lost(frames, params, dev, seeds: int) -> None:
 
 
 def trace(frame, state_card, draws, params, dev):
-    """One step from the same state on both devices, op by op."""
+    """One step from the same state on both devices, op by op (no CUDA
+    graphs on the card: the recorder sees each op)."""
     use_plain_front()
-    step = make_vo_step(params)
+    step, _, _ = _make_vo_step_fns(params, cuda_graphs=False)
     recs = {}
     for name, d in (("cpu", torch.device("cpu")), ("card", dev)):
         state = convert.state_from_numpy(convert.state_to_numpy(state_card),

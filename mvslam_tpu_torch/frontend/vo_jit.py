@@ -17,6 +17,13 @@ branch (the JAX ``lax.switch``), the bootstrap fallback walk reads one
 gate per ring slot tried, and accept/reject and commit/reset read one gate
 each. Everything else stays on the device.
 
+On a CUDA device the TRACKING branch's four geometry stages (association,
+P3P-RANSAC, triangulation, BA), which read nothing on the host and have
+shapes fixed by the params, are CUDA graphs: captured once per step
+function on the first TRACKING frame of each input shape, then replayed,
+one launch a stage, with the frame's tensors copied into the graphs' input
+buffers first. On the CPU the same stages run op by op.
+
 Randomness: the state carries a ``torch.Generator`` (the JAX state's PRNG
 key); the step advances it in place. ``step(..., draws=...)`` supplies the
 RANSAC uniforms instead — ``(init_window, ransac_hypotheses, K)`` when
@@ -30,6 +37,7 @@ points per step — all fixed.
 from __future__ import annotations
 
 import math
+from types import SimpleNamespace
 from typing import NamedTuple
 
 import torch
@@ -52,12 +60,15 @@ MODE_TRACKING = 2
 
 #: the step's spans (``utils.timing.span``: in a profiler's trace only), in
 #: the order a frame opens them: the feature half and its two parts; the
-#: state half, which reads the mode and runs one branch; TRACKING's six
-#: stages; INITIALIZING's three; the first frame's
+#: state half, which reads the mode and runs one branch; TRACKING's span
+#: around its four geometry stages where they replay as CUDA graphs (on a
+#: CUDA device only), and its six stages; INITIALIZING's three; the first
+#: frame's
 SPANS = (
     "vo_jit.pre", "vo_jit.pre.orb", "vo_jit.pre.templates",
     "vo_jit.combine",
-    "vo_jit.track", "vo_jit.track.associate", "vo_jit.track.pnp",
+    "vo_jit.track", "vo_jit.track.graphed", "vo_jit.track.associate",
+    "vo_jit.track.pnp",
     "vo_jit.track.triangulate", "vo_jit.track.ba", "vo_jit.track.gate",
     "vo_jit.track.commit",
     "vo_jit.init", "vo_jit.init.slots", "vo_jit.init.refine",
@@ -245,9 +256,57 @@ def _to_rays(xy: Tensor, K_inv: Tensor) -> Tensor:
     return torch.cat([xy, torch.ones_like(xy[..., :1])], dim=-1) @ K_inv.T
 
 
-def _make_vo_step_fns(params: VoJitParams = VoJitParams()):
+class _StageGraphs:
+    """A chain of stages captured as CUDA graphs, one a stage, in one
+    memory pool. A stage is ``fn(v) -> {name: tensors}`` over a namespace
+    ``v`` that holds the chain's inputs and every earlier stage's outputs.
+
+    ``v`` is kept: its inputs are buffers that a caller copies the next
+    inputs into (``load``) before the first stage replays, and its outputs
+    stay where the capture put them, so that each graph reads the ones
+    before it in place. A replay overwrites what the last one left: a
+    caller copies what it keeps past the next replay."""
+
+    def __init__(self, stages, inputs: dict):
+        # tensors become the buffers; other values are constants of the
+        # graphs
+        self.inputs = {k: t.clone() for k, t in inputs.items()
+                       if isinstance(t, Tensor)}
+        named = {**inputs, **self.inputs}
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            # one eager pass first: handles and workspaces that are made on
+            # first use are made outside the capture
+            warm = SimpleNamespace(**named)
+            for fn in stages:
+                vars(warm).update(fn(warm))
+            del warm
+        self.v = SimpleNamespace(**named)
+        pool = torch.cuda.graph_pool_handle()
+        self.graphs = []
+        for fn in stages:
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, pool=pool, stream=stream,
+                                  capture_error_mode="thread_local"):
+                out = fn(self.v)
+            vars(self.v).update(out)
+            self.graphs.append(graph)
+
+    def load(self, inputs: dict) -> None:
+        """Copy the tensors of ``inputs`` into the buffers of their names."""
+        for k, t in inputs.items():
+            if isinstance(t, Tensor):
+                self.inputs[k].copy_(t)
+
+
+def _make_vo_step_fns(params: VoJitParams = VoJitParams(),
+                      cuda_graphs: bool = True):
     """Build (step, preprocess, combine) for ``(state, image, K_inv,
-    focal)``; ``focal`` may be a float or a 0-dim tensor."""
+    focal)``; ``focal`` may be a float or a 0-dim tensor. Without
+    ``cuda_graphs`` the TRACKING branch runs op by op on a CUDA device too.
+    ``step.track_graphs`` (the same dict as ``combine.track_graphs``) holds
+    the captured graphs by what they were captured for."""
     p = params
     K_feat = p.orb.max_features
     M = p.map_capacity
@@ -465,128 +524,212 @@ def _make_vo_step_fns(params: VoJitParams = VoJitParams()):
         return new_state, out
 
     # ---- mode 2: tracking --------------------------------------------------
+    # The four geometry stages read the frame, the state and the camera
+    # through ``v`` (inputs named as the state's and the frame's fields)
+    # and return what they add to it; none reads a value on the host.
+    def associate(v):
+        # 1) associate to map + KLT against map templates
+        m = matching.match_features(v.desc, v.mask, v.map_desc, v.map_valid,
+                                    p.max_match_distance)
+        if p.use_klt:
+            kr = klt.klt_track(v.map_tmpl[m.idx], v.smooth, v.xy, m.mask)
+            obs_xy = kr.xy
+            obs_sigma = torch.where(kr.valid, p.klt_sigma_px / v.focal,
+                                    v.sigma)
+        else:
+            obs_xy, obs_sigma = v.xy, v.sigma
+        return dict(m_idx=m.idx, m_mask=m.mask, obs_sigma=obs_sigma,
+                    obs_rays=_to_rays(obs_xy, v.K_inv),
+                    map_pts=v.map_pos[m.idx])
+
+    def p3p_ransac(v):
+        # 2) P3P-RANSAC on the draws ``v.uniforms``
+        thr = p.pnp_reproj_px / v.focal
+        pose0, best_inl = pnp.pnp_ransac_core(
+            v.map_pts, v.obs_rays, v.m_mask, p.pnp_hypotheses, thr * thr,
+            uniforms=v.uniforms)
+        return dict(pose0=pose0, best_inl=best_inl,
+                    n_inl=torch.sum(best_inl).to(torch.int32))
+
+    def triangulate(v):
+        # 3) triangulate new points vs previous frame
+        dtype, dev = v.pose_t.dtype, v.pose_t.device
+        lm = matching.match_features(v.lf_desc, v.lf_mask, v.desc, v.mask,
+                                     p.max_match_distance)
+        feat = torch.arange(K_feat, device=dev)
+        new_assoc_of_new_feat = _set_rows(
+            torch.full((K_feat,), -1, dtype=torch.int64, device=dev),
+            torch.where(v.m_mask, feat, torch.full_like(feat, K_feat)),
+            v.m_idx)
+        lm_ok = lm.mask & (new_assoc_of_new_feat[lm.idx] < 0)
+        if p.use_klt:
+            kr2 = klt.klt_track(v.lf_tmpl, v.smooth, v.xy[lm.idx], lm_ok)
+            xy_new = kr2.xy
+            sig_new = torch.where(kr2.valid, p.klt_sigma_px / v.focal,
+                                  v.sigma[lm.idx])
+        else:
+            xy_new, sig_new = v.xy[lm.idx], v.sigma[lm.idx]
+        r_new = _to_rays(xy_new, v.K_inv)
+        last_pose = SE3(v.pose_R, v.pose_t)
+        rel = last_pose.inverse().compose(v.pose0)
+        pts_last, tri_mask = sfm.sfm_triangulate(v.lf_rays, r_new, lm_ok,
+                                                 rel)
+        # consistency gate on fresh triangulations: reproject onto BOTH rays
+        eye = SE3(torch.eye(3, dtype=dtype, device=dev),
+                  torch.zeros(3, dtype=dtype, device=dev))
+        e_last = pnp.reprojection_error_sq(eye, pts_last, v.lf_rays)
+        e_new = pnp.reprojection_error_sq(rel, pts_last, r_new)
+        tri_thr = (p.tri_consistency_px / v.focal) ** 2
+        tri_mask = tri_mask & (e_last < tri_thr) & (e_new < tri_thr)
+        return dict(lm_idx=lm.idx, feat=feat, r_new=r_new, sig_new=sig_new,
+                    tri_mask=tri_mask, e_last=e_last, e_new=e_new,
+                    pts_world=last_pose.apply(pts_last))
+
+    def bundle_adjust(v):
+        # 4) two-frame BA with fixed capacities; fresh triangulations ranked
+        # by their two-ray consistency residual
+        dtype, dev = v.pose_t.dtype, v.pose_t.device
+        old_idx, old_ok = _masked_take(v.m_mask & v.best_inl, p.ba_old)
+        tri_score = torch.where(v.tri_mask, v.e_last + v.e_new,
+                                torch.full_like(v.e_last, math.inf))
+        new_idx = torch.sort(tri_score, stable=True).indices[: p.ba_new]
+        new_ok = v.tri_mask[new_idx]
+        obs_slots = v.m_idx[old_idx]                     # map slots
+        # last-frame observation of those slots (reverse assoc)
+        lf_map_to_feat = _set_rows(
+            torch.full((M,), -1, dtype=torch.int64, device=dev),
+            torch.where(v.lf_assoc >= 0, v.lf_assoc,
+                        torch.full_like(v.lf_assoc, M)), v.feat)
+        lf_feat = lf_map_to_feat[obs_slots]
+        lf_seen = (lf_feat >= 0) & old_ok
+        safe_lf = torch.clamp(lf_feat, min=0)
+        nf = v.lm_idx[new_idx]                           # new-frame feature
+
+        pts0 = torch.cat([v.map_pos[obs_slots], v.pts_world[new_idx]])
+        obs = torch.stack([
+            torch.cat([v.lf_obs_rays[safe_lf, :2], v.lf_rays[new_idx, :2]]),
+            torch.cat([v.obs_rays[old_idx, :2], v.r_new[new_idx, :2]]),
+        ])
+        obs_mask_ba = torch.stack([torch.cat([lf_seen, new_ok]),
+                                   torch.cat([old_ok, new_ok])])
+        # last-frame obs of new points = template centers (exact by
+        # construction, see template_sigma_px)
+        w_tmpl = (torch.zeros(p.ba_new, dtype=dtype, device=dev)
+                  + v.focal / p.template_sigma_px)
+        weight = torch.stack([
+            torch.cat([1.0 / v.lf_obs_sigma[safe_lf], w_tmpl]),
+            torch.cat([1.0 / v.obs_sigma[old_idx], 1.0 / v.sig_new[new_idx]]),
+        ])
+        # old points carry their recursive landmark information
+        stored_info = v.map_info[obs_slots]
+        has_info = torch.diagonal(stored_info, dim1=-2, dim2=-1).sum(-1) > 0
+        iso = (torch.eye(3, dtype=dtype, device=dev)
+               / (p.map_point_stddev ** 2))
+        old_info = torch.where(has_info[:, None, None], stored_info, iso)
+        point_info = torch.cat([
+            torch.where(old_ok[:, None, None], old_info,
+                        torch.zeros_like(old_info)),
+            torch.zeros((p.ba_new, 3, 3), dtype=dtype, device=dev)])
+        poses0 = SE3(torch.stack([v.pose_R, v.pose0.R]),
+                     torch.stack([v.pose_t, v.pose0.t]))
+        pose_prior_info = torch.stack([
+            1e10 * torch.eye(6, dtype=dtype, device=dev),
+            torch.zeros((6, 6), dtype=dtype, device=dev)])
+        prob = ba_mod.BAProblem.create(
+            poses0=poses0, points0=pts0, obs=obs, obs_mask=obs_mask_ba,
+            obs_weight=weight, pose_prior=poses0,
+            pose_prior_info=pose_prior_info, point_prior=pts0,
+            point_prior_info=point_info)
+        return dict(old_idx=old_idx, old_ok=old_ok, new_idx=new_idx,
+                    new_ok=new_ok, obs_slots=obs_slots, nf=nf,
+                    obs_mask_ba=obs_mask_ba,
+                    result=ba_mod.ba_solve(prob, ba_params))
+
+    geometry = (("vo_jit.track.associate", associate),
+                ("vo_jit.track.pnp", p3p_ransac),
+                ("vo_jit.track.triangulate", triangulate),
+                ("vo_jit.track.ba", bundle_adjust))
+    #: what the graphs were captured for (the inputs' devices, dtypes and
+    #: shapes, a focal given as a number) -> the graphs
+    track_graphs: dict = {}
+
+    def geometry_eager(inputs, draws, generator):
+        v = SimpleNamespace(**inputs)
+        for name, fn in geometry:
+            with span(name):
+                if fn is p3p_ransac:
+                    # the draw ``ransac.sample_minimal_sets`` makes
+                    v.uniforms = draws if draws is not None else torch.rand(
+                        (p.pnp_hypotheses, K_feat), generator=generator,
+                        device=v.xy.device)
+                vars(v).update(fn(v))
+        return v
+
+    def geometry_graphed(inputs, draws, generator):
+        dev = inputs["xy"].device
+        shape = (p.pnp_hypotheses, K_feat)
+        if draws is not None and tuple(draws.shape) != shape:
+            raise ValueError(f"uniforms of shape {tuple(draws.shape)}, the "
+                             f"PnP draws are {shape}")
+        u_dtype = torch.get_default_dtype() if draws is None else draws.dtype
+        key = tuple((k, t.device, t.dtype, tuple(t.shape))
+                    if isinstance(t, Tensor) else (k, t)
+                    for k, t in inputs.items()) + (u_dtype,)
+        with torch.cuda.device(dev):
+            graphs = track_graphs.get(key)
+            if graphs is None:
+                graphs = track_graphs[key] = _StageGraphs(
+                    [fn for _, fn in geometry],
+                    dict(inputs, uniforms=torch.zeros(shape, dtype=u_dtype,
+                                                      device=dev)))
+            v = graphs.v
+            with span("vo_jit.track.graphed"):
+                for graph, (name, fn) in zip(graphs.graphs, geometry):
+                    with span(name):
+                        if fn is associate:
+                            graphs.load(inputs)
+                        elif fn is p3p_ransac:
+                            if draws is None:      # the same draw
+                                torch.rand(shape, generator=generator,
+                                           out=v.uniforms)
+                            else:
+                                v.uniforms.copy_(draws)
+                        graph.replay()
+        return v
+
     def do_track(state, f, smooth, K_inv, focal, draws):
         dtype, dev = state.pose_t.dtype, state.pose_t.device
-        with span("vo_jit.track.associate"):
-            # 1) associate to map + KLT against map templates
-            m = matching.match_features(f.desc, f.mask, state.map_desc,
-                                        state.map_valid, p.max_match_distance)
-            if p.use_klt:
-                kr = klt.klt_track(state.map_tmpl[m.idx], smooth, f.xy, m.mask)
-                obs_xy = kr.xy
-                obs_sigma = torch.where(kr.valid, p.klt_sigma_px / focal,
-                                        f.sigma)
-            else:
-                obs_xy, obs_sigma = f.xy, f.sigma
-            obs_rays = _to_rays(obs_xy, K_inv)
-            map_pts = state.map_pos[m.idx]
-        with span("vo_jit.track.pnp"):
-            # 2) P3P-RANSAC
-            thr = p.pnp_reproj_px / focal
-            pose0, best_inl = pnp.pnp_ransac_core(
-                map_pts, obs_rays, m.mask, p.pnp_hypotheses, thr * thr,
-                generator=state.generator, uniforms=draws)
-            n_inl = torch.sum(best_inl).to(torch.int32)
+        inputs = dict(
+            xy=f.xy, desc=f.desc, mask=f.mask, sigma=f.sigma, smooth=smooth,
+            map_desc=state.map_desc, map_valid=state.map_valid,
+            map_tmpl=state.map_tmpl, map_pos=state.map_pos,
+            map_info=state.map_info, lf_desc=state.lf_desc,
+            lf_mask=state.lf_mask, lf_tmpl=state.lf_tmpl,
+            lf_rays=state.lf_rays, lf_assoc=state.lf_assoc,
+            lf_obs_rays=state.lf_obs_rays, lf_obs_sigma=state.lf_obs_sigma,
+            pose_R=state.pose_R, pose_t=state.pose_t, K_inv=K_inv,
+            focal=focal)
+        graphed = cuda_graphs and dev.type == "cuda"
+        v = (geometry_graphed if graphed else geometry_eager)(
+            inputs, draws, state.generator)
 
-        with span("vo_jit.track.triangulate"):
-            # 3) triangulate new points vs previous frame
-            lm = matching.match_features(state.lf_desc, state.lf_mask, f.desc,
-                                         f.mask, p.max_match_distance)
-            feat = torch.arange(K_feat, device=dev)
-            new_assoc_of_new_feat = _set_rows(
-                torch.full((K_feat,), -1, dtype=torch.int64, device=dev),
-                torch.where(m.mask, feat, torch.full_like(feat, K_feat)),
-                m.idx)
-            lm_ok = lm.mask & (new_assoc_of_new_feat[lm.idx] < 0)
-            if p.use_klt:
-                kr2 = klt.klt_track(state.lf_tmpl, smooth, f.xy[lm.idx], lm_ok)
-                xy_new = kr2.xy
-                sig_new = torch.where(kr2.valid, p.klt_sigma_px / focal,
-                                      f.sigma[lm.idx])
-            else:
-                xy_new, sig_new = f.xy[lm.idx], f.sigma[lm.idx]
-            r_new = _to_rays(xy_new, K_inv)
-            last_pose = SE3(state.pose_R, state.pose_t)
-            rel = last_pose.inverse().compose(pose0)
-            pts_last, tri_mask = sfm.sfm_triangulate(state.lf_rays, r_new,
-                                                     lm_ok, rel)
-            # consistency gate on fresh triangulations: reproject onto BOTH
-            # rays
-            eye = SE3(torch.eye(3, dtype=dtype, device=dev),
-                      torch.zeros(3, dtype=dtype, device=dev))
-            e_last = pnp.reprojection_error_sq(eye, pts_last, state.lf_rays)
-            e_new = pnp.reprojection_error_sq(rel, pts_last, r_new)
-            tri_thr = (p.tri_consistency_px / focal) ** 2
-            tri_mask = tri_mask & (e_last < tri_thr) & (e_new < tri_thr)
-            pts_world = last_pose.apply(pts_last)
+        # what outlives the frame is the step's own, not a graph's output
+        def own(t):
+            return t.clone() if graphed else t
 
-        with span("vo_jit.track.ba"):
-            # 4) two-frame BA with fixed capacities; fresh triangulations
-            # ranked by their two-ray consistency residual
-            old_idx, old_ok = _masked_take(m.mask & best_inl, p.ba_old)
-            tri_score = torch.where(tri_mask, e_last + e_new,
-                                    torch.full_like(e_last, math.inf))
-            new_idx = torch.sort(tri_score, stable=True).indices[: p.ba_new]
-            new_ok = tri_mask[new_idx]
-            obs_slots = m.idx[old_idx]                       # map slots
-            # last-frame observation of those slots (reverse assoc)
-            lf_map_to_feat = _set_rows(
-                torch.full((M,), -1, dtype=torch.int64, device=dev),
-                torch.where(state.lf_assoc >= 0, state.lf_assoc,
-                            torch.full_like(state.lf_assoc, M)), feat)
-            lf_feat = lf_map_to_feat[obs_slots]
-            lf_seen = (lf_feat >= 0) & old_ok
-            safe_lf = torch.clamp(lf_feat, min=0)
-            nf = lm.idx[new_idx]                         # new-frame feature
-
-            pts0 = torch.cat([state.map_pos[obs_slots], pts_world[new_idx]])
-            obs = torch.stack([
-                torch.cat([state.lf_obs_rays[safe_lf, :2],
-                           state.lf_rays[new_idx, :2]]),
-                torch.cat([obs_rays[old_idx, :2], r_new[new_idx, :2]]),
-            ])
-            obs_mask_ba = torch.stack([torch.cat([lf_seen, new_ok]),
-                                       torch.cat([old_ok, new_ok])])
-            # last-frame obs of new points = template centers (exact by
-            # construction, see template_sigma_px)
-            w_tmpl = (torch.zeros(p.ba_new, dtype=dtype, device=dev)
-                      + focal / p.template_sigma_px)
-            weight = torch.stack([
-                torch.cat([1.0 / state.lf_obs_sigma[safe_lf], w_tmpl]),
-                torch.cat([1.0 / obs_sigma[old_idx], 1.0 / sig_new[new_idx]]),
-            ])
-            # old points carry their recursive landmark information
-            stored_info = state.map_info[obs_slots]
-            has_info = torch.diagonal(stored_info, dim1=-2,
-                                      dim2=-1).sum(-1) > 0
-            iso = (torch.eye(3, dtype=dtype, device=dev)
-                   / (p.map_point_stddev ** 2))
-            old_info = torch.where(has_info[:, None, None], stored_info, iso)
-            point_info = torch.cat([
-                torch.where(old_ok[:, None, None], old_info,
-                            torch.zeros_like(old_info)),
-                torch.zeros((p.ba_new, 3, 3), dtype=dtype, device=dev)])
-            poses0 = SE3(torch.stack([state.pose_R, pose0.R]),
-                         torch.stack([state.pose_t, pose0.t]))
-            pose_prior_info = torch.stack([
-                1e10 * torch.eye(6, dtype=dtype, device=dev),
-                torch.zeros((6, 6), dtype=dtype, device=dev)])
-            prob = ba_mod.BAProblem.create(
-                poses0=poses0, points0=pts0, obs=obs, obs_mask=obs_mask_ba,
-                obs_weight=weight, pose_prior=poses0,
-                pose_prior_info=pose_prior_info, point_prior=pts0,
-                point_prior_info=point_info)
-            result = ba_mod.ba_solve(prob, ba_params)
+        result = v.result
         with span("vo_jit.track.gate"):
-            n_obs = torch.clamp(torch.sum(obs_mask_ba), min=1)
+            n_obs = torch.clamp(torch.sum(v.obs_mask_ba), min=1)
             mean_err = 2.0 * result.error / n_obs.to(dtype)
-            pose = SE3(result.poses.R[1], result.poses.t[1])
-            ok = ((n_inl >= p.min_track_inliers)
+            pose = SE3(own(result.poses.R[1]), own(result.poses.t[1]))
+            ok = ((v.n_inl >= p.min_track_inliers)
                   & (mean_err <= p.max_track_mean_error)
                   & torch.all(torch.isfinite(pose.t)))
             ok = bool(ok)
         with span("vo_jit.track.commit"):
             if ok:
+                old_idx, old_ok, obs_slots = v.old_idx, v.old_ok, v.obs_slots
+                new_idx, new_ok, nf = v.new_idx, v.new_ok, v.nf
                 pts_ref = result.points
                 info_ref = result.point_information
                 w_old = torch.where(old_ok, obs_slots,
@@ -614,10 +757,10 @@ def _make_vo_step_fns(params: VoJitParams = VoJitParams()):
                                    device=dev)
                 assoc = _set_rows(assoc, w_oldfeat, obs_slots)
                 assoc = _set_rows(assoc, w_nf, slots_new)
-                o_rays = _set_rows(f.rays, w_oldfeat, obs_rays[old_idx])
-                o_rays = _set_rows(o_rays, w_nf, r_new[new_idx])
-                o_sig = _set_rows(f.sigma, w_oldfeat, obs_sigma[old_idx])
-                o_sig = _set_rows(o_sig, w_nf, sig_new[new_idx])
+                o_rays = _set_rows(f.rays, w_oldfeat, v.obs_rays[old_idx])
+                o_rays = _set_rows(o_rays, w_nf, v.r_new[new_idx])
+                o_sig = _set_rows(f.sigma, w_oldfeat, v.obs_sigma[old_idx])
+                o_sig = _set_rows(o_sig, w_nf, v.sig_new[new_idx])
                 new_state = _store_frame(
                     state, f, obs_rays=o_rays, obs_sigma=o_sig, assoc=assoc
                 )._replace(
@@ -636,7 +779,8 @@ def _make_vo_step_fns(params: VoJitParams = VoJitParams()):
                 )
                 new_state = _ring_push(_ring_clear(ns), f)
         out = _out(state, ok, new_state.mode, new_state.pose_R,
-                   new_state.pose_t, n_inl, mean_err, pose0.t, 0)
+                   new_state.pose_t, own(v.n_inl), mean_err, own(v.pose0.t),
+                   0)
         return new_state, out
 
     branches = {MODE_EMPTY: (do_empty, "vo_jit.empty"),
@@ -657,6 +801,7 @@ def _make_vo_step_fns(params: VoJitParams = VoJitParams()):
         f, smooth = preprocess(image, K_inv, focal)
         return combine_fn(state, f, smooth, K_inv, focal, draws)
 
+    step_fn.track_graphs = combine_fn.track_graphs = track_graphs
     return step_fn, preprocess, combine_fn
 
 

@@ -33,6 +33,7 @@ from mvslam_tpu_torch.io.checkpoint import load_checkpoint, save_checkpoint
 from mvslam_tpu_torch.math import kalman
 from mvslam_tpu_torch.ops.camera import PinholeCamera
 from mvslam_tpu_torch.utils.indexing import set_rows
+from mvslam_tpu_torch.frontend import vo_jit
 from mvslam_tpu_torch.frontend.vo_jit import (
     VoJitParams, make_vo_step, vo_init_state,
 )
@@ -628,3 +629,143 @@ def test_dlt_solver_on_the_card_spans_eigh_subspace(dev, which):
     ref = np.linalg.eigh(M32.astype(np.float64))[1][..., :k]
     got = cs.solve_spans(torch.from_numpy(M32).to(dev))[which]
     assert cs.span_angle(got, ref).max() < cs.SOLVER_EIGH_ANGLE[which]
+
+
+# -- the TRACKING branch's geometry stages as CUDA graphs ---------------------
+
+#: the benchmark's scene: frames of the tsukuba.track cell from one seed;
+#: frame ``BLANK`` is black, which loses track (a reset to INITIALIZING)
+GRAPH_FRAMES, GRAPH_SEED, BLANK = 40, 2_900_000_303, 26
+
+
+def _bits(t):
+    return t.detach().reshape(-1).view(torch.uint8)
+
+
+def _same_bits(a, b):
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        _bits(a), _bits(b))
+
+
+def _fields(state, out):
+    """(name, tensor) of a step's state and output, the generator's state
+    included."""
+    got = [(f"state.{k}", v.get_state() if isinstance(v, torch.Generator)
+            else v) for k, v in state._asdict().items()]
+    return got + [(f"out.{k}", v) for k, v in out._asdict().items()]
+
+
+@pytest.fixture(scope="module")
+def bench_scene():
+    """The cell's tracker params, K_inv, focal (a tensor, as the benchmark
+    passes it) and frames as the served loop hands them over."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from slambench import cell as bench_cell
+    from slambench import program, reference, scene
+
+    dev = torch.device("cuda", 0)
+    c = bench_cell.resolve("tsukuba.track")
+    tr = c.traffic
+    u8 = torch.empty((GRAPH_FRAMES, c.camera.height, c.camera.width),
+                     dtype=torch.uint8)
+    scene.render_uint8(torch.Generator(device=dev).manual_seed(GRAPH_SEED),
+                       tr.ts[:GRAPH_FRAMES], tr.yaws[:GRAPH_FRAMES],
+                       c.camera, tr.bg_slope, u8)
+    images = reference.to_image(u8.to(dev))
+    images[BLANK] = 0.0
+    trk = program.tracker(c.config, c.camera.K(), dev)
+    return trk.params, trk.K_inv, trk.focal, images
+
+
+@pytest.fixture(scope="module")
+def graphed_and_eager(bench_scene):
+    """Both trackers over the scene from one seed: per frame the entering
+    mode, each side's (name, tensor) fields as returned, and a copy of the
+    graphed side's fields made right after its step; the graphed step's
+    graphs after the first TRACKING frame and at the end."""
+    params, K_inv, focal, images = bench_scene
+    dev = images.device
+    graphed = vo_jit.make_vo_step(params)
+    eager, _, _ = vo_jit._make_vo_step_fns(params, cuda_graphs=False)
+    s_g = vo_init_state(params, device=dev, seed=7)
+    s_e = vo_init_state(params, device=dev, seed=7)
+    rec = dict(modes=[], graphed=[], eager=[], copies=[], first=None)
+    for t in range(images.shape[0]):
+        rec["modes"].append(int(s_g.mode))
+        s_g, o_g = graphed(s_g, images[t], K_inv, focal)
+        s_e, o_e = eager(s_e, images[t], K_inv, focal)
+        got = _fields(s_g, o_g)
+        rec["graphed"].append(got)
+        rec["copies"].append([(k, v.clone()) for k, v in got])
+        rec["eager"].append(_fields(s_e, o_e))
+        if rec["first"] is None and graphed.track_graphs:
+            rec["first"] = dict(graphed.track_graphs)
+    rec["last"] = dict(graphed.track_graphs)
+    assert not eager.track_graphs
+    return rec
+
+
+def test_graphed_tracker_equals_eager_bitwise(graphed_and_eager):
+    """Replaying the geometry stages gives the eager step's bits: every
+    field of state and output on every frame, through bootstrap, TRACKING,
+    the reset and the re-entry."""
+    rec = graphed_and_eager
+    for t, (g, e) in enumerate(zip(rec["graphed"], rec["eager"])):
+        for (name, a), (_, b) in zip(g, e):
+            assert _same_bits(a, b), (t, name)
+
+
+def test_reset_and_reentry_replay_without_a_new_capture(graphed_and_eager):
+    modes = graphed_and_eager["modes"]
+    tracking = [t for t, m in enumerate(modes) if m == vo_jit.MODE_TRACKING]
+    # frames entering TRACKING before the blank frame, a reset after it,
+    # and TRACKING again
+    assert tracking and tracking[0] < BLANK and BLANK in tracking
+    assert modes[BLANK + 1] == vo_jit.MODE_INITIALIZING
+    assert any(t > BLANK + 1 for t in tracking)
+    first, last = graphed_and_eager["first"], graphed_and_eager["last"]
+    assert len(first) == 1
+    assert list(last.items()) == list(first.items())   # the same graphs
+
+
+def test_outputs_held_from_a_frame_survive_the_next(graphed_and_eager):
+    """What a graphed step returned is its own: after every later frame ran
+    it still holds the bits it had when it was returned."""
+    rec = graphed_and_eager
+    for t, (held, copy) in enumerate(zip(rec["graphed"], rec["copies"])):
+        for (name, a), (_, b) in zip(held, copy):
+            if name == "state.generator":
+                continue        # the live generator's state, read anew
+            assert _same_bits(a, b), (t, name)
+
+
+def test_graphed_step_consumes_the_draws_it_is_given(bench_scene):
+    """Draws given to a TRACKING frame go into the graph's P3P buffer, give
+    the eager step's bits on the same draws, and leave the generator as it
+    was."""
+    params, K_inv, focal, images = bench_scene
+    dev = images.device
+    graphed = vo_jit.make_vo_step(params)
+    eager, _, _ = vo_jit._make_vo_step_fns(params, cuda_graphs=False)
+    s_g = vo_init_state(params, device=dev, seed=3)
+    s_e = vo_init_state(params, device=dev, seed=3)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    given = 0
+    for t in range(12):
+        draws = None
+        if int(s_g.mode) == vo_jit.MODE_TRACKING:
+            draws = torch.rand((params.pnp_hypotheses,
+                                params.orb.max_features), generator=gen,
+                               device=dev)
+            before = s_g.generator.get_state()
+        s_g, o_g = graphed(s_g, images[t], K_inv, focal, draws)
+        s_e, o_e = eager(s_e, images[t], K_inv, focal, draws)
+        for (name, a), (_, b) in zip(_fields(s_g, o_g), _fields(s_e, o_e)):
+            assert _same_bits(a, b), (t, name)
+        if draws is not None:
+            given += 1
+            (graphs,) = graphed.track_graphs.values()
+            assert torch.equal(graphs.v.uniforms, draws)
+            assert torch.equal(s_g.generator.get_state(), before)
+    assert given >= 5

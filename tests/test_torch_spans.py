@@ -1,8 +1,12 @@
 """The tracker step's spans (``vo_jit.SPANS``, ``utils.timing.span``) on the
 CPU: under ``torch.profiler`` a run that bootstraps and then tracks gives
-every span, nested and in the order ``vo_jit.py`` lists them, and the spans
-change nothing the tracker computes: poses, modes and state are bit-equal
-with the profiler on and off, same seed and same draws.
+every span but ``vo_jit.track.graphed``, nested and in the order
+``vo_jit.py`` lists them, and the spans change nothing the tracker
+computes: poses, modes and state are bit-equal with the profiler on and
+off, same seed and same draws. ``vo_jit.track.graphed`` marks the CUDA
+graphs' replays: a tracker on the CPU builds no graph and never opens it,
+and its step is the one the private builder gives without graphs, bit for
+bit.
 
 4 frames of the two-plane scene (240x320, focal 280, slanted background)
 at small capacities: EMPTY, INITIALIZING (bootstraps), TRACKING twice.
@@ -36,7 +40,11 @@ def _parent(name):
     return name.rsplit(".", 1)[0]
 
 
-def _run(profiled):
+#: opened only where the geometry stages replay as CUDA graphs
+GRAPHED = "vo_jit.track.graphed"
+
+
+def _run(profiled, step=None):
     i = np.arange(N_FRAMES)
     ts = np.stack([i * 0.12, 0.02 * np.sin(i * 0.25), np.zeros(N_FRAMES)],
                   1)
@@ -44,7 +52,7 @@ def _run(profiled):
     K_inv = torch.tensor(np.linalg.inv(
         [[FOCAL, 0, (W - 1) / 2], [0, FOCAL, (H - 1) / 2], [0, 0, 1]]),
         dtype=torch.float32)
-    step = vo_jit.make_vo_step(PARAMS)
+    step = vo_jit.make_vo_step(PARAMS) if step is None else step
     state = vo_jit.vo_init_state(PARAMS, device="cpu", seed=1)
     states, outs, events = [], [], None
 
@@ -62,12 +70,26 @@ def _run(profiled):
         events = prof.profiler.kineto_results.events()
     else:
         run()
+    assert not step.track_graphs
     return states, outs, events
 
 
 @pytest.fixture(scope="module")
 def runs():
     return _run(False), _run(True)
+
+
+def _assert_bit_equal(run_a, run_b):
+    (s_a, o_a, _), (s_b, o_b, _) = run_a, run_b
+    assert len(s_a) == len(s_b) == N_FRAMES
+    for a, b in zip(s_a + o_a, s_b + o_b):
+        for x, y in zip(a, b):
+            if isinstance(x, torch.Generator):
+                x, y = x.get_state(), y.get_state()
+            assert x.dtype == y.dtype and x.shape == y.shape
+            # bits, so that a NaN equals itself
+            assert torch.equal(x.reshape(-1).view(torch.uint8),
+                               y.reshape(-1).view(torch.uint8))
 
 
 def test_spans_nest_in_the_listed_order(runs):
@@ -77,7 +99,7 @@ def test_spans_nest_in_the_listed_order(runs):
     spans = sorted(((e.start_ns(), -e.duration_ns(), e.name(),
                      e.start_ns() + e.duration_ns()) for e in events
                     if e.name().startswith("vo_jit.")))
-    assert {s[2] for s in spans} == set(vo_jit.SPANS)
+    assert {s[2] for s in spans} == set(vo_jit.SPANS) - {GRAPHED}
     # one frame per "vo_jit.pre"; each frame's spans in the listed order
     frames, stack = [], []
     for a, _, name, b in spans:
@@ -91,7 +113,8 @@ def test_spans_nest_in_the_listed_order(runs):
         stack.append((name, b))
     head = ["vo_jit.pre", "vo_jit.pre.orb", "vo_jit.pre.templates",
             "vo_jit.combine"]
-    track = [n for n in vo_jit.SPANS if n.startswith("vo_jit.track")]
+    track = [n for n in vo_jit.SPANS
+             if n.startswith("vo_jit.track") and n != GRAPHED]
     init = [n for n in vo_jit.SPANS if n.startswith("vo_jit.init")]
     assert frames == [head + ["vo_jit.empty"], head + init,
                       head + track, head + track]
@@ -101,13 +124,22 @@ def test_spans_nest_in_the_listed_order(runs):
 
 
 def test_profiler_changes_nothing_the_tracker_computes(runs):
-    (s_off, o_off, _), (s_on, o_on, _) = runs
-    assert len(s_off) == len(s_on) == N_FRAMES
-    for a, b in zip(s_off + o_off, s_on + o_on):
-        for x, y in zip(a, b):
-            if isinstance(x, torch.Generator):
-                x, y = x.get_state(), y.get_state()
-            assert x.dtype == y.dtype and x.shape == y.shape
-            # bits, so that a NaN equals itself
-            assert torch.equal(x.reshape(-1).view(torch.uint8),
-                               y.reshape(-1).view(torch.uint8))
+    _assert_bit_equal(*runs)
+
+
+def test_graphed_span_is_listed_around_the_geometry_stages():
+    i = vo_jit.SPANS.index(GRAPHED)
+    assert vo_jit.SPANS[i - 1] == "vo_jit.track"
+    assert vo_jit.SPANS[i + 1] == "vo_jit.track.associate"
+
+
+def test_cpu_tracker_never_opens_the_graphed_span(runs):
+    _, (_, outs, events) = runs
+    assert sum(int(o.mode) == vo_jit.MODE_TRACKING for o in outs) == 3
+    names = {e.name() for e in events}
+    assert "vo_jit.track.ba" in names and GRAPHED not in names
+
+
+def test_step_equals_the_eager_builder_on_the_cpu(runs):
+    eager, _, _ = vo_jit._make_vo_step_fns(PARAMS, cuda_graphs=False)
+    _assert_bit_equal(runs[0], _run(False, eager))
