@@ -2168,8 +2168,11 @@ def phase_orb_options(dev, gpu: str) -> dict:
         # subpixel, card vs CPU from the card's pyramid
         levels = features.pyramid(img, base)
         cpu_levels = [lv.cpu() for lv in levels]
-        for layout, detect in (("unrolled", features._orb_detect_unrolled),
-                               ("batched", features._orb_detect_batched)):
+
+        def detect(lv, p):
+            return features.orb_keypoints(lv, features.corner_ranks(lv, p), p)
+
+        for layout in ("unrolled", "batched"):
             p = base._replace(batched=layout == "batched")
             card, cpu = (detect(lv, p._replace(subpixel=True))
                          for lv in (levels, cpu_levels))

@@ -17,12 +17,15 @@ branch (the JAX ``lax.switch``), the bootstrap fallback walk reads one
 gate per ring slot tried, and accept/reject and commit/reset read one gate
 each. Everything else stays on the device.
 
-On a CUDA device the TRACKING branch's four geometry stages (association,
-P3P-RANSAC, triangulation, BA), which read nothing on the host and have
-shapes fixed by the params, are CUDA graphs: captured once per step
-function on the first TRACKING frame of each input shape, then replayed,
+On a CUDA device two parts of the step, which read nothing on the host
+and have shapes fixed by the params and the image, are CUDA graphs,
+captured once per step function for each input shape and then replayed,
 one launch a stage, with the frame's tensors copied into the graphs' input
-buffers first. On the CPU the same stages run op by op.
+buffers first: the feature half after the corner kernel (the per-keypoint
+ORB, then the KLT templates; the pyramid and the kernel's one launch stay
+eager, so that the kernel's output is a fresh tensor each frame), and the
+TRACKING branch's four geometry stages (association, P3P-RANSAC,
+triangulation, BA). On the CPU the same stages run op by op.
 
 Randomness: the state carries a ``torch.Generator`` (the JAX state's PRNG
 key); the step advances it in place. ``step(..., draws=...)`` supplies the
@@ -46,7 +49,9 @@ from mvslam_tpu_torch.math.lie import SE3
 from mvslam_tpu_torch.ops import ba as ba_mod
 from mvslam_tpu_torch.ops import (epipolar, klt, matching, pnp, ransac,
                                   sfm)
-from mvslam_tpu_torch.ops.features import OrbParams, orb_detect
+from mvslam_tpu_torch.ops.features import (OrbParams, corner_ranks,
+                                           orb_detect, orb_keypoints,
+                                           pyramid)
 from mvslam_tpu_torch.utils.indexing import allocate_slots as _allocate_slots
 from mvslam_tpu_torch.utils.indexing import masked_take as _masked_take
 from mvslam_tpu_torch.utils.indexing import set_rows as _set_rows
@@ -59,13 +64,15 @@ MODE_INITIALIZING = 1
 MODE_TRACKING = 2
 
 #: the step's spans (``utils.timing.span``: in a profiler's trace only), in
-#: the order a frame opens them: the feature half and its two parts; the
-#: state half, which reads the mode and runs one branch; TRACKING's span
-#: around its four geometry stages where they replay as CUDA graphs (on a
-#: CUDA device only), and its six stages; INITIALIZING's three; the first
-#: frame's
+#: the order a frame opens them: the feature half, its span around its two
+#: parts where they replay as CUDA graphs (on a CUDA device only), and its
+#: two parts; the state half, which reads the mode and runs one branch;
+#: TRACKING's span around its four geometry stages where they replay as
+#: CUDA graphs (on a CUDA device only), and its six stages; INITIALIZING's
+#: three; the first frame's
 SPANS = (
-    "vo_jit.pre", "vo_jit.pre.orb", "vo_jit.pre.templates",
+    "vo_jit.pre", "vo_jit.pre.graphed", "vo_jit.pre.orb",
+    "vo_jit.pre.templates",
     "vo_jit.combine",
     "vo_jit.track", "vo_jit.track.graphed", "vo_jit.track.associate",
     "vo_jit.track.pnp",
@@ -256,6 +263,29 @@ def _to_rays(xy: Tensor, K_inv: Tensor) -> Tensor:
     return torch.cat([xy, torch.ones_like(xy[..., :1])], dim=-1) @ K_inv.T
 
 
+def _tensors(t) -> tuple | None:
+    """The tensors of a graph's input ``t``: a tensor, or a list or tuple
+    of tensors; ``None`` for any other value."""
+    if isinstance(t, Tensor):
+        return (t,)
+    if isinstance(t, (list, tuple)) and all(isinstance(x, Tensor)
+                                            for x in t):
+        return tuple(t)
+    return None
+
+
+def _graph_key(inputs: dict) -> tuple:
+    """What graphs are captured for: the devices, dtypes and shapes of the
+    inputs' tensors, and any other input's value."""
+    def sig(t):
+        ts = _tensors(t)
+        if ts is None:
+            return t
+        return tuple((x.device, x.dtype, tuple(x.shape)) for x in ts)
+
+    return tuple((k, sig(t)) for k, t in inputs.items())
+
+
 class _StageGraphs:
     """A chain of stages captured as CUDA graphs, one a stage, in one
     memory pool. A stage is ``fn(v) -> {name: tensors}`` over a namespace
@@ -268,10 +298,14 @@ class _StageGraphs:
     caller copies what it keeps past the next replay."""
 
     def __init__(self, stages, inputs: dict):
-        # tensors become the buffers; other values are constants of the
-        # graphs
-        self.inputs = {k: t.clone() for k, t in inputs.items()
-                       if isinstance(t, Tensor)}
+        # tensors, and lists or tuples of them (kept as tuples), become the
+        # buffers; other values are constants of the graphs
+        self.inputs = {}
+        for k, t in inputs.items():
+            ts = _tensors(t)
+            if ts is not None:
+                self.inputs[k] = (ts[0].clone() if isinstance(t, Tensor)
+                                  else tuple(x.clone() for x in ts))
         named = {**inputs, **self.inputs}
         stream = torch.cuda.Stream()
         stream.wait_stream(torch.cuda.current_stream())
@@ -296,17 +330,21 @@ class _StageGraphs:
     def load(self, inputs: dict) -> None:
         """Copy the tensors of ``inputs`` into the buffers of their names."""
         for k, t in inputs.items():
-            if isinstance(t, Tensor):
-                self.inputs[k].copy_(t)
+            ts = _tensors(t)
+            if ts is not None:
+                for dst, src in zip(_tensors(self.inputs[k]), ts):
+                    dst.copy_(src)
 
 
 def _make_vo_step_fns(params: VoJitParams = VoJitParams(),
                       cuda_graphs: bool = True):
     """Build (step, preprocess, combine) for ``(state, image, K_inv,
     focal)``; ``focal`` may be a float or a 0-dim tensor. Without
-    ``cuda_graphs`` the TRACKING branch runs op by op on a CUDA device too.
-    ``step.track_graphs`` (the same dict as ``combine.track_graphs``) holds
-    the captured graphs by what they were captured for."""
+    ``cuda_graphs`` the feature half and the TRACKING branch run op by op
+    on a CUDA device too. ``step.pre_graphs`` (the same dict as
+    ``preprocess.pre_graphs``) and ``step.track_graphs`` (as
+    ``combine.track_graphs``) hold the captured graphs by what they were
+    captured for."""
     p = params
     K_feat = p.orb.max_features
     M = p.map_capacity
@@ -316,16 +354,61 @@ def _make_vo_step_fns(params: VoJitParams = VoJitParams(),
                                 huber_delta=p.huber_delta)
 
     # ---- shared per-frame preprocessing -----------------------------------
+    def frame_arrays(image, feats, K_inv, focal):
+        rays = _to_rays(feats.xy, K_inv)
+        smooth = klt.smooth_image(image)
+        tmpl = klt.extract_templates(smooth, feats.xy)
+        return _FrameArrays(feats.xy, feats.desc, feats.mask, rays,
+                            feats.sigma / focal, tmpl), smooth
+
+    # Where the feature half replays as CUDA graphs, the pyramid and the
+    # corner kernel's one call run eagerly (``orb_detect``'s first two
+    # steps), and the rest is two stages over ``v`` (the pyramid's
+    # ``levels``, the kernel's ``ranks``, ``K_inv``, ``focal``), neither of
+    # which reads a value on the host.
+    def keypoints(v):
+        return dict(feats=orb_keypoints(v.levels, v.ranks, p.orb))
+
+    def templates(v):
+        # level 0 of the pyramid is the image
+        frame, smooth = frame_arrays(v.levels[0], v.feats, v.K_inv, v.focal)
+        return dict(frame=frame, smooth=smooth)
+
+    #: what the feature half's graphs were captured for (``_graph_key``:
+    #: the levels', ranks' and camera's shapes, a focal given as a number)
+    #: -> the graphs
+    pre_graphs: dict = {}
+
+    def preprocess_graphed(image, K_inv, focal):
+        with torch.cuda.device(image.device), span("vo_jit.pre.graphed"):
+            with span("vo_jit.pre.orb"):
+                levels = pyramid(image, p.orb)
+                inputs = dict(levels=levels,
+                              ranks=corner_ranks(levels, p.orb),
+                              K_inv=K_inv, focal=focal)
+                key = _graph_key(inputs)
+                graphs = pre_graphs.get(key)
+                if graphs is None:
+                    graphs = pre_graphs[key] = _StageGraphs(
+                        [keypoints, templates], inputs)
+                graphs.load(inputs)
+                graphs.graphs[0].replay()
+            with span("vo_jit.pre.templates"):
+                graphs.graphs[1].replay()
+                # what the step returns and stores is its own, not a
+                # graph's output
+                v = graphs.v
+                return (_FrameArrays(*(t.clone() for t in v.frame)),
+                        v.smooth.clone())
+
     def preprocess(image: Tensor, K_inv: Tensor, focal):
         with span("vo_jit.pre"):
+            if cuda_graphs and image.device.type == "cuda":
+                return preprocess_graphed(image, K_inv, focal)
             with span("vo_jit.pre.orb"):
                 feats = orb_detect(image, p.orb)
             with span("vo_jit.pre.templates"):
-                rays = _to_rays(feats.xy, K_inv)
-                smooth = klt.smooth_image(image)
-                tmpl = klt.extract_templates(smooth, feats.xy)
-            return _FrameArrays(feats.xy, feats.desc, feats.mask, rays,
-                                feats.sigma / focal, tmpl), smooth
+                return frame_arrays(image, feats, K_inv, focal)
 
     def _out(state, success, mode, pose_R, pose_t, num_inliers, mean_error,
              pnp_t, init_tried) -> VoStepOut:
@@ -672,9 +755,7 @@ def _make_vo_step_fns(params: VoJitParams = VoJitParams(),
             raise ValueError(f"uniforms of shape {tuple(draws.shape)}, the "
                              f"PnP draws are {shape}")
         u_dtype = torch.get_default_dtype() if draws is None else draws.dtype
-        key = tuple((k, t.device, t.dtype, tuple(t.shape))
-                    if isinstance(t, Tensor) else (k, t)
-                    for k, t in inputs.items()) + (u_dtype,)
+        key = _graph_key(inputs) + (u_dtype,)
         with torch.cuda.device(dev):
             graphs = track_graphs.get(key)
             if graphs is None:
@@ -801,6 +882,7 @@ def _make_vo_step_fns(params: VoJitParams = VoJitParams(),
         f, smooth = preprocess(image, K_inv, focal)
         return combine_fn(state, f, smooth, K_inv, focal, draws)
 
+    step_fn.pre_graphs = preprocess.pre_graphs = pre_graphs
     step_fn.track_graphs = combine_fn.track_graphs = track_graphs
     return step_fn, preprocess, combine_fn
 

@@ -11,7 +11,9 @@ the CPU — in both layouts of ``OrbParams.batched``. The per-keypoint half
 rBRIEF descriptors) runs level by level (unrolled, the default) or once
 over an ``(L, H, W)`` canvas of the levels (batched); both give the same
 features. ``OrbParams.subpixel`` fits a parabola on each kept corner's
-Harris neighbourhood.
+Harris neighbourhood. ``orb_detect`` is the pyramid, the kernel's call
+(``corner_ranks``) and the per-keypoint half (``orb_keypoints``), which
+reads nothing on the host.
 
 Descriptors are ``(K, 8)`` int32 words holding the same bits as the JAX
 package's uint32 words (``torch.uint32`` supports few operations).
@@ -246,6 +248,14 @@ def _pack_words(bits: Tensor) -> Tensor:
     return torch.where(words >= 2 ** 31, words - 2 ** 32, words).to(torch.int32)
 
 
+@functools.lru_cache(maxsize=16)
+def _device_pattern(device: torch.device, dtype: torch.dtype) -> Tensor:
+    """``_PATTERN`` on ``device`` in ``dtype``, built once per pair: a
+    frame's descriptors then upload nothing (an upload from pageable
+    memory reads on the host and cannot be captured in a CUDA graph)."""
+    return torch.as_tensor(_PATTERN, dtype=dtype, device=device)
+
+
 def _descriptors(patches_smooth: Tensor, angles: Tensor) -> Tensor:
     """Rotated-BRIEF bits from smoothed patches (K, P, P) -> (K, 8) int32.
 
@@ -253,8 +263,7 @@ def _descriptors(patches_smooth: Tensor, angles: Tensor) -> Tensor:
     one-hot contractions select exactly these values)."""
     K, P = patches_smooth.shape[0], patches_smooth.shape[-1]
     c = (P - 1) / 2.0
-    pat = torch.as_tensor(_PATTERN, dtype=patches_smooth.dtype,
-                          device=patches_smooth.device)
+    pat = _device_pattern(patches_smooth.device, patches_smooth.dtype)
     cos = torch.cos(angles)[:, None, None]
     sin = torch.sin(angles)[:, None, None]
     x = pat[None, ..., 0]
@@ -377,23 +386,37 @@ def orb_detect(img: Tensor, params: OrbParams = OrbParams()) -> FeatureSet:
     same features; they differ in the ``xy`` of invalid slots only.
     """
     levels = pyramid(img, params)
+    return orb_keypoints(levels, corner_ranks(levels, params), params)
+
+
+def corner_ranks(levels: list[Tensor], params: OrbParams):
+    """The corner kernel's one call over the pyramid ``levels``: the rank
+    maps of the levels (``fast_nms_harris_rank_pyramid``) in the unrolled
+    layout, their one flat buffer (``fast_nms_harris_rank_flat``) in the
+    batched one. The function is looked up on ``features_cuda`` at each
+    call, so that a wrapper put there sees every launch."""
+    from mvslam_tpu_torch.ops import features_cuda
+
+    args = (levels, params.fast_threshold, params.harris_k, params.border)
     if params.batched:
-        return _orb_detect_batched(levels, params)
-    return _orb_detect_unrolled(levels, params)
+        return features_cuda.fast_nms_harris_rank_flat(*args)
+    return features_cuda.fast_nms_harris_rank_pyramid(*args)
 
 
-def _orb_detect_unrolled(levels: list[Tensor],
-                         params: OrbParams) -> FeatureSet:
+def orb_keypoints(levels: list[Tensor], ranks, params: OrbParams
+                  ) -> FeatureSet:
+    """The per-keypoint half of ``orb_detect``, from the pyramid and
+    ``corner_ranks``' output: it reads nothing on the host."""
+    if params.batched:
+        return _batched_keypoints(levels, ranks, params)
+    return _unrolled_keypoints(levels, ranks, params)
+
+
+def _unrolled_keypoints(levels: list[Tensor], ranks: list[Tensor],
+                        params: OrbParams) -> FeatureSet:
     """The per-keypoint half level by level, at each level's own size."""
-    from mvslam_tpu_torch.ops.features_cuda import (
-        fast_nms_harris_rank_pyramid,
-    )
-
     dtype, dev = levels[0].dtype, levels[0].device
     budgets = _level_budgets(params)
-    ranks = fast_nms_harris_rank_pyramid(levels, params.fast_threshold,
-                                         params.harris_k, params.border)
-
     parts = []
     for l, (level_img, rank) in enumerate(zip(levels, ranks)):
         w = level_img.shape[1]
@@ -470,7 +493,8 @@ def _canvas(flat: Tensor, dst: Tensor, shape: tuple[int, int, int],
     return out.index_copy_(0, dst, flat).view(shape)
 
 
-def _orb_detect_batched(levels: list[Tensor], params: OrbParams) -> FeatureSet:
+def _batched_keypoints(levels: list[Tensor], rank_flat: Tensor,
+                       params: OrbParams) -> FeatureSet:
     """The per-keypoint half once over an (L, H, W) canvas (the JAX canvas
     layout). The ranks of the one kernel call are placed into a -inf canvas
     and the levels into a zero canvas; one stable descending sort per
@@ -478,17 +502,13 @@ def _orb_detect_batched(levels: list[Tensor], params: OrbParams) -> FeatureSet:
     ``y * W + x`` orders as ``y * w + x`` does within a level), a static
     slot map picks each level's budget, and one patch gather, orientation
     and descriptor pass serve all K keypoints."""
-    from mvslam_tpu_torch.ops.features_cuda import fast_nms_harris_rank_flat
-
     dtype = levels[0].dtype
     H, W = levels[0].shape
     shape = (len(levels), H, W)
     lay = _canvas_layout(tuple((lv.shape[0], lv.shape[1]) for lv in levels),
                          tuple(int(b) for b in _level_budgets(params)),
                          params.scale_factor, levels[0].device, dtype)
-    rank = _canvas(fast_nms_harris_rank_flat(
-        levels, params.fast_threshold, params.harris_k, params.border),
-        lay.dst, shape, -math.inf)
+    rank = _canvas(rank_flat, lay.dst, shape, -math.inf)
     canvas = _canvas(torch.cat([lv.reshape(-1) for lv in levels]), lay.dst,
                      shape, 0.0)
     vals_l, idx_l = torch.sort(rank.reshape(shape[0], H * W), dim=1,

@@ -13,7 +13,11 @@ tensors on the card. The ORB options (one kernel launch per image, the
 batched layout equal to the unrolled one, subpixel against the CPU) and
 the distributed solvers on a one-rank NCCL group (bitwise the ungrouped
 solves). The two-view, PnP and BA solves of the reference's rigs in
-float64 and float32. Every test needs a CUDA card
+float64 and float32. The tracker's CUDA graphs against its op-by-op step,
+bit for bit: the geometry stages and the feature half after K1 (one
+capture per image shape and ORB layout, K1 still one eager launch a frame
+that the benchmark's tap sees, outputs that outlive the next replay).
+Every test needs a CUDA card
 and skips without one; this file imports no JAX, so on the card it runs as
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
@@ -524,11 +528,13 @@ def test_orb_subpixel_on_the_card_matches_cpu(dev, batched):
     within 1e-4 px of their level (the fit reads a float64 Harris
     surface on both devices)."""
     levels = _levels(dev, 480, 640)
-    detect = (features._orb_detect_batched if batched
-              else features._orb_detect_unrolled)
     p = P._replace(batched=batched, subpixel=True)
-    card = detect(levels, p)
-    cpu = detect([lv.cpu() for lv in levels], p)
+
+    def detect(lv):
+        return features.orb_keypoints(lv, features.corner_ranks(lv, p), p)
+
+    card = detect(levels)
+    cpu = detect([lv.cpu() for lv in levels])
     m = cpu.mask
     assert torch.equal(card.mask.cpu(), m)
     assert torch.equal(card.octave.cpu(), cpu.octave)
@@ -701,8 +707,11 @@ def graphed_and_eager(bench_scene):
         rec["eager"].append(_fields(s_e, o_e))
         if rec["first"] is None and graphed.track_graphs:
             rec["first"] = dict(graphed.track_graphs)
+        if t == 0:
+            rec["pre_first"] = dict(graphed.pre_graphs)
     rec["last"] = dict(graphed.track_graphs)
-    assert not eager.track_graphs
+    rec["pre_last"] = dict(graphed.pre_graphs)
+    assert not eager.track_graphs and not eager.pre_graphs
     return rec
 
 
@@ -769,3 +778,137 @@ def test_graphed_step_consumes_the_draws_it_is_given(bench_scene):
             assert torch.equal(graphs.v.uniforms, draws)
             assert torch.equal(s_g.generator.get_state(), before)
     assert given >= 5
+
+
+def test_feature_half_captures_once_and_replays_across_the_reset(
+        graphed_and_eager):
+    """One capture of the feature half for the scene's image shape, made on
+    the first frame and replayed on every later one, the blank frame's
+    reset and the re-entry included; the geometry still one capture."""
+    rec = graphed_and_eager
+    assert len(rec["pre_first"]) == 1
+    assert list(rec["pre_last"].items()) == list(rec["pre_first"].items())
+    assert len(rec["last"]) == 1
+
+
+def _pre_fields(out):
+    f, smooth = out
+    return [(f"frame.{k}", v) for k, v in f._asdict().items()] + [
+        ("smooth", smooth)]
+
+
+@pytest.fixture(scope="module")
+def pre_halves(bench_scene):
+    """The graphed and the op-by-op feature half over the scene, with the
+    benchmark's ``K1Tap`` around K1 as the served loop installs it: per
+    frame each side's (name, tensor) outputs, a copy of the graphed side's
+    made right after its call, K1's launches during the graphed call, and
+    the rank maps the tap kept from each side."""
+    from slambench import program
+
+    params, K_inv, focal, images = bench_scene
+    _, g_pre, _ = vo_jit._make_vo_step_fns(params)
+    _, e_pre, _ = vo_jit._make_vo_step_fns(params, cuda_graphs=False)
+    rec = dict(graphed=[], eager=[], copies=[], launches=[], g_ranks=[],
+               e_ranks=[])
+    tap = program.K1Tap()
+    tap.install()
+    try:
+        tap.want = True
+        for t in range(images.shape[0]):
+            before = features_cuda.fast_nms_harris_rank_pyramid.launches
+            got = _pre_fields(g_pre(images[t], K_inv, focal))
+            rec["launches"].append(
+                features_cuda.fast_nms_harris_rank_pyramid.launches - before)
+            rec["g_ranks"].append(tap.got)
+            tap.got = None
+            rec["graphed"].append(got)
+            rec["copies"].append([(k, v.clone()) for k, v in got])
+            rec["eager"].append(_pre_fields(e_pre(images[t], K_inv, focal)))
+            rec["e_ranks"].append(tap.got)
+            tap.got = None
+    finally:
+        tap.remove()
+    rec["pre_graphs"] = dict(g_pre.pre_graphs)
+    assert not e_pre.pre_graphs
+    return rec
+
+
+def test_graphed_feature_half_equals_eager_bitwise(pre_halves):
+    """Every output of the replayed feature half (the frame's arrays and the
+    smoothed image) has the op-by-op half's bits on every frame of the
+    scene, the blank one included."""
+    rec = pre_halves
+    assert len(rec["graphed"]) == GRAPH_FRAMES and len(rec["pre_graphs"]) == 1
+    for t, (g, e) in enumerate(zip(rec["graphed"], rec["eager"])):
+        assert [k for k, _ in g] == [k for k, _ in e]
+        for (name, a), (_, b) in zip(g, e):
+            assert _same_bits(a, b), (t, name)
+
+
+def test_k1_launches_once_a_frame_and_the_tap_sees_each(pre_halves):
+    """K1 stays an eager launch under replay: its counter rises by one a
+    frame, and a wrapper put on ``features_cuda`` (the benchmark's
+    ``K1Tap``) gets a fresh rank map every frame, with the op-by-op half's
+    bits."""
+    rec = pre_halves
+    assert rec["launches"] == [1] * GRAPH_FRAMES
+    ptrs = set()
+    for t, (g, e) in enumerate(zip(rec["g_ranks"], rec["e_ranks"])):
+        assert g is not None and len(g) == P.num_levels, t
+        ptrs.add(g[0].data_ptr())
+        for a, b in zip(g, e):
+            assert _same_bits(a, b), t
+    assert len(ptrs) == GRAPH_FRAMES
+
+
+def test_features_held_from_a_frame_survive_the_next(pre_halves):
+    """What the graphed feature half returned is its own: after every later
+    frame ran it still holds the bits it had when it was returned."""
+    rec = pre_halves
+    for t, (held, copy) in enumerate(zip(rec["graphed"], rec["copies"])):
+        for (name, a), (_, b) in zip(held, copy):
+            assert _same_bits(a, b), (t, name)
+
+
+def test_another_image_size_gets_its_own_feature_capture(bench_scene):
+    """A 240x320 image beside the cell's 288x384 ones: one capture each,
+    each replayed with the op-by-op half's bits; a focal given as a number
+    keys its own."""
+    params, K_inv, focal, images = bench_scene
+    _, g_pre, _ = vo_jit._make_vo_step_fns(params)
+    _, e_pre, _ = vo_jit._make_vo_step_fns(params, cuda_graphs=False)
+    small = torch.nn.functional.interpolate(
+        images[:2, None], size=(240, 320), mode="bilinear",
+        align_corners=False)[:, 0].contiguous()
+    for img in (images[0], small[0], images[1], small[1]):
+        for f in (focal, float(focal)):
+            got, want = g_pre(img, K_inv, f), e_pre(img, K_inv, f)
+            for (name, a), (_, b) in zip(_pre_fields(got),
+                                         _pre_fields(want)):
+                assert _same_bits(a, b), (tuple(img.shape), name)
+    assert len(g_pre.pre_graphs) == 4
+    shapes = {key[0][1][0][2] for key in g_pre.pre_graphs}
+    assert shapes == {(288, 384), (240, 320)}
+
+
+@pytest.mark.parametrize("batched,subpixel", [(True, False), (False, True),
+                                              (True, True)])
+def test_both_orb_layouts_capture(bench_scene, batched, subpixel):
+    """The ORB options' feature half captures too (the batched layout's
+    one flat rank buffer, the subpixel fit's float64 Harris surface) and
+    replays with the op-by-op bits, K1 still one launch a frame."""
+    params, K_inv, focal, images = bench_scene
+    params = params._replace(orb=params.orb._replace(batched=batched,
+                                                     subpixel=subpixel))
+    _, g_pre, _ = vo_jit._make_vo_step_fns(params)
+    _, e_pre, _ = vo_jit._make_vo_step_fns(params, cuda_graphs=False)
+    for t in range(4):
+        before = features_cuda.fast_nms_harris_rank_pyramid.launches
+        got = _pre_fields(g_pre(images[t], K_inv, focal))
+        assert features_cuda.fast_nms_harris_rank_pyramid.launches == \
+            before + 1
+        for (name, a), (_, b) in zip(got, _pre_fields(
+                e_pre(images[t], K_inv, focal))):
+            assert _same_bits(a, b), (t, name)
+    assert len(g_pre.pre_graphs) == 1

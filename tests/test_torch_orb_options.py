@@ -212,6 +212,55 @@ def test_one_corner_kernel_call_per_image_in_both_layouts(monkeypatch):
     assert calls == [8, 8, 8, 8]
 
 
+@pytest.mark.parametrize("opts", OPTIONS, ids=IDS)
+@pytest.mark.parametrize("batched", [False, True], ids=["unrolled", "batched"])
+def test_keypoints_from_copied_ranks_equal_orb_detect(opts, batched):
+    """The per-keypoint half (``orb_keypoints``) read from copies of the
+    pyramid and of the corner kernel's output, as a CUDA graph's input
+    buffers hold them, gives ``orb_detect``'s features bit for bit; the
+    unrolled layout's rank maps are views of one buffer, the copies are
+    not."""
+    p = tf.OrbParams(batched=batched, max_features=64, **opts)
+    img = torch.from_numpy(loop_frame())
+    want = tf.orb_detect(img, p)
+    levels = tf.pyramid(img, p)
+    ranks = tf.corner_ranks(levels, p)
+    assert isinstance(ranks, torch.Tensor) == batched
+    copies = (ranks.clone() if batched else tuple(r.clone() for r in ranks))
+    got = tf.orb_keypoints(tuple(lv.clone() for lv in levels), copies, p)
+    for name, a, b in zip(tf.FeatureSet._fields, got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_brief_pattern_is_built_once_per_device_and_dtype(dtype):
+    """``_descriptors`` takes the rBRIEF pattern from a tensor built once
+    per device and dtype, holding ``_PATTERN``'s values, and describes as
+    with the pattern converted on each call."""
+    cpu = torch.device("cpu")
+    pat = tf._device_pattern(cpu, dtype)
+    assert pat.dtype == dtype and pat.device == cpu
+    assert torch.equal(pat, torch.as_tensor(tf._PATTERN, dtype=dtype))
+    rng = np.random.default_rng(5)
+    smooth = torch.from_numpy(rng.uniform(size=(32, 35, 35))).to(dtype)
+    angles = torch.from_numpy(rng.uniform(-np.pi, np.pi, 32)).to(dtype)
+    before = tf._device_pattern.cache_info()
+    got = tf._descriptors(smooth, angles)
+    after = tf._device_pattern.cache_info()
+    assert after.misses == before.misses and after.hits == before.hits + 1
+    assert tf._device_pattern(cpu, dtype) is pat
+    # the descriptor as written before the cache: the pattern converted here
+    c = (smooth.shape[-1] - 1) / 2.0
+    x = torch.as_tensor(tf._PATTERN, dtype=dtype)[None, ..., 0]
+    y = torch.as_tensor(tf._PATTERN, dtype=dtype)[None, ..., 1]
+    cos, sin = torch.cos(angles)[:, None, None], torch.sin(angles)[:, None,
+                                                                  None]
+    xi = torch.clamp(torch.round(cos * x - sin * y + c), 0, 34).long()
+    yi = torch.clamp(torch.round(sin * x + cos * y + c), 0, 34).long()
+    s = smooth[torch.arange(32)[:, None, None], yi, xi]
+    assert torch.equal(got, tf._pack_words(s[..., 0] < s[..., 1]))
+
+
 @pytest.mark.parametrize("size", [(100, 70), (96, 128)])
 def test_batched_on_clamped_pyramids(size):
     """Upper levels clamp to 2 * border + 1 (no longer a scaled copy of the

@@ -1,12 +1,12 @@
 """The tracker step's spans (``vo_jit.SPANS``, ``utils.timing.span``) on the
 CPU: under ``torch.profiler`` a run that bootstraps and then tracks gives
-every span but ``vo_jit.track.graphed``, nested and in the order
-``vo_jit.py`` lists them, and the spans change nothing the tracker
-computes: poses, modes and state are bit-equal with the profiler on and
-off, same seed and same draws. ``vo_jit.track.graphed`` marks the CUDA
-graphs' replays: a tracker on the CPU builds no graph and never opens it,
-and its step is the one the private builder gives without graphs, bit for
-bit.
+every span but ``vo_jit.pre.graphed`` and ``vo_jit.track.graphed``, nested
+and in the order ``vo_jit.py`` lists them, and the spans change nothing
+the tracker computes: poses, modes and state are bit-equal with the
+profiler on and off, same seed and same draws. The two ``.graphed`` spans
+mark the CUDA graphs' replays: a tracker on the CPU builds no graph and
+never opens them, and its step is the one
+``vo_jit._make_vo_step_fns(..., cuda_graphs=False)`` gives, bit for bit.
 
 4 frames of the two-plane scene (240x320, focal 280, slanted background)
 at small capacities: EMPTY, INITIALIZING (bootstraps), TRACKING twice.
@@ -42,6 +42,8 @@ def _parent(name):
 
 #: opened only where the geometry stages replay as CUDA graphs
 GRAPHED = "vo_jit.track.graphed"
+#: opened only where the feature half replays as CUDA graphs
+PRE_GRAPHED = "vo_jit.pre.graphed"
 
 
 def _run(profiled, step=None):
@@ -70,7 +72,7 @@ def _run(profiled, step=None):
         events = prof.profiler.kineto_results.events()
     else:
         run()
-    assert not step.track_graphs
+    assert not step.track_graphs and not step.pre_graphs
     return states, outs, events
 
 
@@ -99,7 +101,8 @@ def test_spans_nest_in_the_listed_order(runs):
     spans = sorted(((e.start_ns(), -e.duration_ns(), e.name(),
                      e.start_ns() + e.duration_ns()) for e in events
                     if e.name().startswith("vo_jit.")))
-    assert {s[2] for s in spans} == set(vo_jit.SPANS) - {GRAPHED}
+    assert {s[2] for s in spans} == set(vo_jit.SPANS) - {GRAPHED,
+                                                         PRE_GRAPHED}
     # one frame per "vo_jit.pre"; each frame's spans in the listed order
     frames, stack = [], []
     for a, _, name, b in spans:
@@ -133,11 +136,25 @@ def test_graphed_span_is_listed_around_the_geometry_stages():
     assert vo_jit.SPANS[i + 1] == "vo_jit.track.associate"
 
 
+def test_pre_graphed_span_is_listed_around_the_feature_stages():
+    i = vo_jit.SPANS.index(PRE_GRAPHED)
+    assert vo_jit.SPANS[i - 1] == "vo_jit.pre"
+    assert vo_jit.SPANS[i + 1:i + 3] == ("vo_jit.pre.orb",
+                                         "vo_jit.pre.templates")
+
+
 def test_cpu_tracker_never_opens_the_graphed_span(runs):
     _, (_, outs, events) = runs
     assert sum(int(o.mode) == vo_jit.MODE_TRACKING for o in outs) == 3
     names = {e.name() for e in events}
     assert "vo_jit.track.ba" in names and GRAPHED not in names
+
+
+def test_cpu_tracker_never_opens_the_pre_graphed_span(runs):
+    _, (_, outs, events) = runs
+    names = [e.name() for e in events]
+    assert names.count("vo_jit.pre.orb") == N_FRAMES
+    assert PRE_GRAPHED not in names
 
 
 def test_step_equals_the_eager_builder_on_the_cpu(runs):
