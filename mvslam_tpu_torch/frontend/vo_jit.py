@@ -17,15 +17,16 @@ branch (the JAX ``lax.switch``), the bootstrap fallback walk reads one
 gate per ring slot tried, and accept/reject and commit/reset read one gate
 each. Everything else stays on the device.
 
-On a CUDA device two parts of the step, which read nothing on the host
-and have shapes fixed by the params and the image, are CUDA graphs,
-captured once per step function for each input shape and then replayed,
-one launch a stage, with the frame's tensors copied into the graphs' input
-buffers first: the feature half after the corner kernel (the per-keypoint
-ORB, then the KLT templates; the pyramid and the kernel's one launch stay
-eager, so that the kernel's output is a fresh tensor each frame), and the
-TRACKING branch's four geometry stages (association, P3P-RANSAC,
-triangulation, BA). On the CPU the same stages run op by op.
+The step runs as chains of stages over a namespace: the feature half
+after the corner kernel (the per-keypoint ORB, then the KLT templates),
+the TRACKING branch's four geometry stages (association, P3P-RANSAC on
+the frame's draw, triangulation, BA) and the bootstrap's three (slots,
+refine, seed), which run op by op. The first two read nothing on the host
+and have shapes fixed by the params and the image, and one
+``_StageRunner`` each runs them: on a CUDA device it captures the chain
+as CUDA graphs once per step function for each input shape and then
+replays it, one launch a stage, with the frame's tensors copied into the
+graphs' input buffers first; on the CPU the stages run op by op.
 
 Randomness: the state carries a ``torch.Generator`` (the JAX state's PRNG
 key); the step advances it in place. ``step(..., draws=...)`` supplies the
@@ -40,6 +41,7 @@ points per step — all fixed.
 from __future__ import annotations
 
 import math
+from contextlib import nullcontext
 from types import SimpleNamespace
 from typing import NamedTuple
 
@@ -286,54 +288,93 @@ def _graph_key(inputs: dict) -> tuple:
     return tuple((k, sig(t)) for k, t in inputs.items())
 
 
-class _StageGraphs:
-    """A chain of stages captured as CUDA graphs, one a stage, in one
-    memory pool. A stage is ``fn(v) -> {name: tensors}`` over a namespace
-    ``v`` that holds the chain's inputs and every earlier stage's outputs.
+class _StageRunner:
+    """A chain of stages, run one at a time: ``start(inputs)``, then
+    ``advance()`` once a stage. A stage is ``fn(v) -> {name: tensors}``
+    over the namespace ``v`` of the chain's inputs and what every earlier
+    stage added (a stage rebinds no name).
 
-    ``v`` is kept: its inputs are buffers that a caller copies the next
-    inputs into (``load``) before the first stage replays, and its outputs
-    stay where the capture put them, so that each graph reads the ones
-    before it in place. A replay overwrites what the last one left: a
-    caller copies what it keeps past the next replay."""
+    Where the inputs are on a CUDA device and ``cuda_graphs`` is set, the
+    stages replay as CUDA graphs, one a stage in one memory pool, captured
+    on the first run for each ``_graph_key`` and kept in ``captures`` with
+    their own ``v``: its inputs are buffers that the first advance fills,
+    its outputs stay where the capture put them and the next run
+    overwrites them, so a caller keeps them through ``own``. Elsewhere the
+    stages run op by op on a fresh ``v``."""
 
-    def __init__(self, stages, inputs: dict):
+    def __init__(self, stages, cuda_graphs: bool):
+        self.stages = tuple(stages)
+        self.cuda_graphs = cuda_graphs
+        #: ``_graph_key`` of the inputs -> ``SimpleNamespace(v, graphs)``
+        self.captures: dict = {}
+
+    def replays(self, device: torch.device) -> bool:
+        """Whether a run on inputs on ``device`` replays CUDA graphs."""
+        return self.cuda_graphs and device.type == "cuda"
+
+    def start(self, inputs: dict) -> "_StageRunner":
+        self._next = 0
+        dev = next(ts[0].device for ts in map(_tensors, inputs.values())
+                   if ts)
+        if not self.replays(dev):
+            self.v, self._graphs = SimpleNamespace(**inputs), None
+            return self
+        key = _graph_key(inputs)
+        cap = self.captures.get(key)
+        if cap is None:
+            with torch.cuda.device(dev):
+                cap = self.captures[key] = self._capture(inputs)
+        # the first advance loads ``inputs``; nothing keeps them after that
+        self.v, self._graphs, self._load = cap.v, cap.graphs, inputs
+        return self
+
+    def advance(self) -> None:
+        i, self._next = self._next, self._next + 1
+        if self._graphs is None:
+            vars(self.v).update(self.stages[i](self.v))
+            return
+        if i == 0:
+            for k, t in self._load.items():
+                ts = _tensors(t)
+                if ts is not None:
+                    for dst, src in zip(_tensors(getattr(self.v, k)), ts):
+                        dst.copy_(src)
+            self._load = None
+        self._graphs[i].replay()
+
+    def own(self, t: Tensor) -> Tensor:
+        """``t`` as the caller's own: a graph's output is copied."""
+        return t if self._graphs is None else t.clone()
+
+    def _capture(self, inputs: dict) -> SimpleNamespace:
         # tensors, and lists or tuples of them (kept as tuples), become the
         # buffers; other values are constants of the graphs
-        self.inputs = {}
+        named = dict(inputs)
         for k, t in inputs.items():
             ts = _tensors(t)
             if ts is not None:
-                self.inputs[k] = (ts[0].clone() if isinstance(t, Tensor)
-                                  else tuple(x.clone() for x in ts))
-        named = {**inputs, **self.inputs}
+                named[k] = (ts[0].clone() if isinstance(t, Tensor)
+                            else tuple(x.clone() for x in ts))
         stream = torch.cuda.Stream()
         stream.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(stream):
             # one eager pass first: handles and workspaces that are made on
             # first use are made outside the capture
             warm = SimpleNamespace(**named)
-            for fn in stages:
+            for fn in self.stages:
                 vars(warm).update(fn(warm))
             del warm
-        self.v = SimpleNamespace(**named)
+        v = SimpleNamespace(**named)
         pool = torch.cuda.graph_pool_handle()
-        self.graphs = []
-        for fn in stages:
+        graphs = []
+        for fn in self.stages:
             graph = torch.cuda.CUDAGraph()
             with torch.cuda.graph(graph, pool=pool, stream=stream,
                                   capture_error_mode="thread_local"):
-                out = fn(self.v)
-            vars(self.v).update(out)
-            self.graphs.append(graph)
-
-    def load(self, inputs: dict) -> None:
-        """Copy the tensors of ``inputs`` into the buffers of their names."""
-        for k, t in inputs.items():
-            ts = _tensors(t)
-            if ts is not None:
-                for dst, src in zip(_tensors(self.inputs[k]), ts):
-                    dst.copy_(src)
+                out = fn(v)
+            vars(v).update(out)
+            graphs.append(graph)
+        return SimpleNamespace(v=v, graphs=graphs)
 
 
 def _make_vo_step_fns(params: VoJitParams = VoJitParams(),
@@ -353,62 +394,47 @@ def _make_vo_step_fns(params: VoJitParams = VoJitParams(),
                                 compute_point_info=True,
                                 huber_delta=p.huber_delta)
 
-    # ---- shared per-frame preprocessing -----------------------------------
-    def frame_arrays(image, feats, K_inv, focal):
-        rays = _to_rays(feats.xy, K_inv)
-        smooth = klt.smooth_image(image)
-        tmpl = klt.extract_templates(smooth, feats.xy)
-        return _FrameArrays(feats.xy, feats.desc, feats.mask, rays,
-                            feats.sigma / focal, tmpl), smooth
-
-    # Where the feature half replays as CUDA graphs, the pyramid and the
-    # corner kernel's one call run eagerly (``orb_detect``'s first two
-    # steps), and the rest is two stages over ``v`` (the pyramid's
-    # ``levels``, the kernel's ``ranks``, ``K_inv``, ``focal``), neither of
-    # which reads a value on the host.
+    # ---- the feature half --------------------------------------------------
+    # Two stages over ``v`` (the pyramid's ``levels``, the corner kernel's
+    # ``ranks``, ``K_inv``, ``focal``), neither of which reads a value on
+    # the host. Where they replay as CUDA graphs the pyramid and the
+    # kernel's one call (``orb_detect``'s first two steps) run eagerly
+    # ahead of them, so that the kernel's output is a fresh tensor each
+    # frame; op by op the first stage is ``orb_detect`` whole, so that a
+    # wrapper put on it sees every detection of the step.
     def keypoints(v):
+        if v.ranks is None:
+            return dict(feats=orb_detect(v.levels[0], p.orb))
         return dict(feats=orb_keypoints(v.levels, v.ranks, p.orb))
 
     def templates(v):
-        # level 0 of the pyramid is the image
-        frame, smooth = frame_arrays(v.levels[0], v.feats, v.K_inv, v.focal)
-        return dict(frame=frame, smooth=smooth)
+        f = v.feats
+        rays = _to_rays(f.xy, v.K_inv)
+        smooth = klt.smooth_image(v.levels[0])    # level 0 is the image
+        tmpl = klt.extract_templates(smooth, f.xy)
+        return dict(frame=_FrameArrays(f.xy, f.desc, f.mask, rays,
+                                       f.sigma / v.focal, tmpl),
+                    smooth=smooth)
 
-    #: what the feature half's graphs were captured for (``_graph_key``:
-    #: the levels', ranks' and camera's shapes, a focal given as a number)
-    #: -> the graphs
-    pre_graphs: dict = {}
-
-    def preprocess_graphed(image, K_inv, focal):
-        with torch.cuda.device(image.device), span("vo_jit.pre.graphed"):
-            with span("vo_jit.pre.orb"):
-                levels = pyramid(image, p.orb)
-                inputs = dict(levels=levels,
-                              ranks=corner_ranks(levels, p.orb),
-                              K_inv=K_inv, focal=focal)
-                key = _graph_key(inputs)
-                graphs = pre_graphs.get(key)
-                if graphs is None:
-                    graphs = pre_graphs[key] = _StageGraphs(
-                        [keypoints, templates], inputs)
-                graphs.load(inputs)
-                graphs.graphs[0].replay()
-            with span("vo_jit.pre.templates"):
-                graphs.graphs[1].replay()
-                # what the step returns and stores is its own, not a
-                # graph's output
-                v = graphs.v
-                return (_FrameArrays(*(t.clone() for t in v.frame)),
-                        v.smooth.clone())
+    features = _StageRunner((keypoints, templates), cuda_graphs)
 
     def preprocess(image: Tensor, K_inv: Tensor, focal):
-        with span("vo_jit.pre"):
-            if cuda_graphs and image.device.type == "cuda":
-                return preprocess_graphed(image, K_inv, focal)
+        replays = features.replays(image.device)
+        with span("vo_jit.pre"), (span("vo_jit.pre.graphed") if replays
+                                  else nullcontext()):
             with span("vo_jit.pre.orb"):
-                feats = orb_detect(image, p.orb)
+                levels = pyramid(image, p.orb) if replays else [image]
+                run = features.start(dict(
+                    levels=levels,
+                    ranks=corner_ranks(levels, p.orb) if replays else None,
+                    K_inv=K_inv, focal=focal))
+                run.advance()
             with span("vo_jit.pre.templates"):
-                return frame_arrays(image, feats, K_inv, focal)
+                run.advance()
+                # what the step returns and stores is its own, not a
+                # graph's output
+                return (_FrameArrays(*map(run.own, run.v.frame)),
+                        run.own(run.v.smooth))
 
     def _out(state, success, mode, pose_R, pose_t, num_inliers, mean_error,
              pnp_t, init_tried) -> VoStepOut:
@@ -437,174 +463,188 @@ def _make_vo_step_fns(params: VoJitParams = VoJitParams(),
         return new_state, out
 
     # ---- mode 1: bootstrap vs the frame-ring window -----------------------
-    def do_init(state, f, smooth, K_inv, focal, draws):
-        """Two-view bootstrap against every ring slot, accepting the oldest
-        slot that passes the quality gates (falling back to younger ones
-        when the refined-error gate fails)."""
-        dtype, dev = state.pose_t.dtype, state.pose_t.device
-        B = p.init_window
-        thr_sq = p.max_error_sq / (focal * focal)
+    # Two-view bootstrap against every ring slot, accepting the oldest slot
+    # that passes the quality gates (falling back to younger ones when the
+    # refined-error gate fails). Three stages over ``v`` (the state, the
+    # frame, the camera and the draws), run as ``do_track``'s are but never
+    # as CUDA graphs: the first two read on the host.
+    def try_slot(v, draws, b):
+        """Cheap per-slot candidate: match + KLT + RANSAC + pose recovery +
+        the pre-refine quality gates."""
+        state, f, focal = v.state, v.f, v.focal
+        rb_desc, rb_rays = state.rb_desc[b], state.rb_rays[b]
+        m = matching.match_features(rb_desc, state.rb_mask[b], f.desc,
+                                    f.mask, p.max_match_distance)
+        if p.use_klt:
+            kr = klt.klt_track(state.rb_tmpl[b], v.smooth, f.xy[m.idx],
+                               m.mask)
+            xy2 = kr.xy
+            # on KLT failure the observation is the matched new-frame
+            # feature position, so the fallback sigma is that feature's
+            obs_sigma = torch.where(kr.valid, p.klt_sigma_px / focal,
+                                    f.sigma[m.idx])
+            klt_valid = kr.valid
+        else:
+            xy2 = f.xy[m.idx]
+            obs_sigma = f.sigma[m.idx]
+            klt_valid = m.mask
+        r2 = _to_rays(xy2, v.K_inv)
+        rr = ransac.essential_ransac(
+            rb_rays, r2, m.mask, num_hypotheses=p.ransac_hypotheses,
+            threshold_sq=v.thr_sq, uniforms=draws[b])
+        pose2in1, _, _ = sfm.recover_pose_and_points(
+            rr.model, rb_rays, r2, rr.inlier_mask)
+        w_rot = torch.amax(torch.abs(pose2in1.log()[3:]))
+        t_norm = torch.clamp(torch.linalg.vector_norm(pose2in1.t), min=1e-9)
+        tz = torch.abs(pose2in1.t[2]) / t_norm
+        n_inl = rr.num_inliers
+        ok = ((n_inl >= p.min_pair_inliers)
+              & (w_rot <= p.max_pair_rotation)
+              & (tz <= p.max_pair_z_translation)
+              & torch.all(torch.isfinite(pose2in1.t)))
+        return dict(ok=ok, R=pose2in1.R, t=pose2in1.t,
+                    inlier_mask=rr.inlier_mask, m_idx=m.idx, r2=r2,
+                    obs_sigma=obs_sigma, klt_valid=klt_valid, n_inl=n_inl)
 
-        def try_slot(b):
-            """Cheap per-slot candidate: match + KLT + RANSAC + pose
-            recovery + the pre-refine quality gates."""
-            rb_desc, rb_rays = state.rb_desc[b], state.rb_rays[b]
-            m = matching.match_features(rb_desc, state.rb_mask[b], f.desc,
-                                        f.mask, p.max_match_distance)
-            if p.use_klt:
-                kr = klt.klt_track(state.rb_tmpl[b], smooth, f.xy[m.idx],
-                                   m.mask)
-                xy2 = kr.xy
-                # on KLT failure the observation is the matched new-frame
-                # feature position, so the fallback sigma is that feature's
-                obs_sigma = torch.where(kr.valid, p.klt_sigma_px / focal,
-                                        f.sigma[m.idx])
-                klt_valid = kr.valid
-            else:
-                xy2 = f.xy[m.idx]
-                obs_sigma = f.sigma[m.idx]
-                klt_valid = m.mask
-            r2 = _to_rays(xy2, K_inv)
-            rr = ransac.essential_ransac(
-                rb_rays, r2, m.mask, num_hypotheses=p.ransac_hypotheses,
-                threshold_sq=thr_sq, uniforms=draws[b])
-            pose2in1, _, _ = sfm.recover_pose_and_points(
-                rr.model, rb_rays, r2, rr.inlier_mask)
-            w_rot = torch.amax(torch.abs(pose2in1.log()[3:]))
-            t_norm = torch.clamp(torch.linalg.vector_norm(pose2in1.t),
-                                 min=1e-9)
-            tz = torch.abs(pose2in1.t[2]) / t_norm
-            n_inl = rr.num_inliers
-            ok = ((n_inl >= p.min_pair_inliers)
-                  & (w_rot <= p.max_pair_rotation)
-                  & (tz <= p.max_pair_z_translation)
-                  & torch.all(torch.isfinite(pose2in1.t)))
-            return dict(ok=ok, R=pose2in1.R, t=pose2in1.t,
-                        inlier_mask=rr.inlier_mask, m_idx=m.idx, r2=r2,
-                        obs_sigma=obs_sigma, klt_valid=klt_valid, n_inl=n_inl)
+    def init_slots(v):
+        """Every ring slot's candidate, and the slots ranked oldest-passing
+        first (failing slots sort last), read on the host once."""
+        state, draws = v.state, v.draws
+        if draws is None:
+            draws = torch.rand((p.init_window, p.ransac_hypotheses, K_feat),
+                               generator=state.generator,
+                               device=state.pose_t.device)
+        slots = [try_slot(v, draws, b) for b in range(p.init_window)]
+        cand = {k: torch.stack([s[k] for s in slots]) for k in slots[0]}
+        ok_b = cand["ok"] & state.rb_valid
+        age = state.step - state.rb_step
+        score = torch.where(ok_b, age, torch.full_like(age, -1))
+        order = torch.sort(-score, stable=True).indices
+        n_ok = torch.sum(ok_b)
+        host = torch.cat([n_ok.view(1), order]).tolist()
+        return dict(cand=cand, n_ok=host[0], order=host[1:])
 
-        with span("vo_jit.init.slots"):
-            if draws is None:
-                draws = torch.rand((B, p.ransac_hypotheses, K_feat),
-                                   generator=state.generator, device=dev)
-            slots = [try_slot(b) for b in range(B)]
-            cand = {k: torch.stack([s[k] for s in slots]) for k in slots[0]}
-            ok_b = cand["ok"] & state.rb_valid
-            age = state.step - state.rb_step
-            score = torch.where(ok_b, age, torch.full_like(age, -1))
-            # slots ranked oldest-passing first (failing slots sort last)
-            order = torch.sort(-score, stable=True).indices
-            n_ok = torch.sum(ok_b)
-            host = torch.cat([n_ok.view(1), order]).tolist()
-            n_ok, order = host[0], host[1:]
+    def refine_slot(v, b):
+        """One Sampson polish + LM refine of ring slot ``b``; returns
+        (passed the error gate, the enriched selection)."""
+        state, dtype = v.state, v.state.pose_t.dtype
+        s = {k: t[b] for k, t in v.cand.items()}
+        rb_rays_b, rb_sigma_b = state.rb_rays[b], state.rb_sigma[b]
+        r2, inl = s["r2"], s["inlier_mask"]
+        pose2in1 = epipolar.refine_relative_pose_sampson(
+            SE3(s["R"], s["t"]), rb_rays_b, r2, inl.to(dtype))
+        points, point_mask = sfm.sfm_triangulate(rb_rays_b, r2, inl,
+                                                 pose2in1)
+        # base-frame observations are template centers (exact by
+        # construction); new-frame ones carry the tracker's noise
+        obs_sigma = s["obs_sigma"]
+        if p.use_klt:
+            sigma1 = torch.where(
+                s["klt_valid"],
+                torch.zeros_like(obs_sigma) + p.template_sigma_px / v.focal,
+                rb_sigma_b)
+        else:
+            sigma1 = rb_sigma_b
+        ref = sfm.sfm_refine(
+            rb_rays_b, r2, point_mask, pose2in1, points,
+            obs_stddev=torch.stack([sigma1, obs_sigma]),
+            gauge="scale_only", ba_params=ba_params)
+        n_obs = torch.clamp(2 * torch.sum(point_mask), min=1)
+        mean_err = 2.0 * ref.error / n_obs.to(dtype)
+        T = ref.pose2in1
+        passed = ((mean_err <= state.gate_pair_err.to(dtype))
+                  & torch.all(torch.isfinite(T.t)))
+        return passed, dict(s, R=T.R, t=T.t, points=ref.points,
+                            point_info=ref.point_information,
+                            point_mask=point_mask, mean_err=mean_err)
 
-        def refine_slot(b):
-            """One Sampson polish + LM refine of ring slot ``b``; returns
-            (passed the error gate, the enriched selection)."""
-            s = {k: v[b] for k, v in cand.items()}
-            rb_rays_b, rb_sigma_b = state.rb_rays[b], state.rb_sigma[b]
-            r2, inl = s["r2"], s["inlier_mask"]
-            pose2in1 = epipolar.refine_relative_pose_sampson(
-                SE3(s["R"], s["t"]), rb_rays_b, r2, inl.to(dtype))
-            points, point_mask = sfm.sfm_triangulate(rb_rays_b, r2, inl,
-                                                     pose2in1)
-            # base-frame observations are template centers (exact by
-            # construction); new-frame ones carry the tracker's noise
-            obs_sigma = s["obs_sigma"]
-            if p.use_klt:
-                sigma1 = torch.where(
-                    s["klt_valid"],
-                    torch.zeros_like(obs_sigma) + p.template_sigma_px / focal,
-                    rb_sigma_b)
-            else:
-                sigma1 = rb_sigma_b
-            ref = sfm.sfm_refine(
-                rb_rays_b, r2, point_mask, pose2in1, points,
-                obs_stddev=torch.stack([sigma1, obs_sigma]),
-                gauge="scale_only", ba_params=ba_params)
-            n_obs = torch.clamp(2 * torch.sum(point_mask), min=1)
-            mean_err = 2.0 * ref.error / n_obs.to(dtype)
-            T = ref.pose2in1
-            passed = ((mean_err <= state.gate_pair_err.to(dtype))
-                      & torch.all(torch.isfinite(T.t)))
-            return passed, dict(s, R=T.R, t=T.t, points=ref.points,
-                                point_info=ref.point_information,
-                                point_mask=point_mask, mean_err=mean_err)
-
-        with span("vo_jit.init.refine"):
-            # Walk the ranked slots until one passes the refined-error gate
-            # (one host read per slot; typically one slot).
-            b = order[0]
-            sel = dict({k: v[b] for k, v in cand.items()},
-                       points=torch.zeros((K_feat, 3), dtype=dtype,
+    def init_refine(v):
+        """Walk the ranked slots until one passes the refined-error gate
+        (one host read per slot; typically one slot)."""
+        dev = v.state.pose_t.device
+        kw = dict(dtype=v.state.pose_t.dtype, device=dev)
+        b = v.order[0]
+        sel = dict({k: t[b] for k, t in v.cand.items()},
+                   points=torch.zeros((K_feat, 3), **kw),
+                   point_info=torch.zeros((K_feat, 3, 3), **kw),
+                   point_mask=torch.zeros(K_feat, dtype=torch.bool,
                                           device=dev),
-                       point_info=torch.zeros((K_feat, 3, 3), dtype=dtype,
-                                              device=dev),
-                       point_mask=torch.zeros(K_feat, dtype=torch.bool,
-                                              device=dev),
-                       mean_err=torch.full((), math.inf, dtype=dtype,
-                                           device=dev))
-            n_tried, any_ok = 0, False
-            for i in range(n_ok):
-                b = order[i]
-                passed, sel = refine_slot(b)
-                n_tried = i + 1
-                if bool(passed):
-                    any_ok = True
-                    break
+                   mean_err=torch.full((), math.inf, **kw))
+        n_tried, any_ok = 0, False
+        for i in range(v.n_ok):
+            b = v.order[i]
+            passed, sel = refine_slot(v, b)
+            n_tried = i + 1
+            if bool(passed):
+                any_ok = True
+                break
+        return dict(b=b, sel=sel, n_tried=n_tried, any_ok=any_ok)
 
-        with span("vo_jit.init.seed"):
-            if any_ok:
-                point_mask = sel["point_mask"]
-                # seed map: slot i <- base feature i (masked); the selected
-                # ring frame becomes the world frame
-                ar = torch.arange(K_feat, dtype=torch.int32, device=dev)
+    def init_seed(v):
+        """Seed the map from the accepted slot, or slide the window."""
+        state, f = v.state, v.f
+        if not v.any_ok:
+            # slide the window: the new frame joins the ring
+            return dict(new_state=_ring_push(_store_frame(state, f), f))
+        dtype, dev = state.pose_t.dtype, state.pose_t.device
+        b, sel = v.b, v.sel
+        point_mask = sel["point_mask"]
+        # seed map: slot i <- base feature i (masked); the selected ring
+        # frame becomes the world frame
+        ar = torch.arange(K_feat, dtype=torch.int32, device=dev)
 
-                def seeded(shape, dt, head, fill=0):
-                    out = torch.full(shape, fill, dtype=dt, device=dev)
-                    out[:K_feat] = head
-                    return out
+        def seeded(shape, dt, head, fill=0):
+            out = torch.full(shape, fill, dtype=dt, device=dev)
+            out[:K_feat] = head
+            return out
 
-                step_or_none = torch.where(point_mask, state.step,
-                                           torch.full_like(ar, -1))
-                map_info_head = torch.where(
-                    point_mask[:, None, None], sel["point_info"],
-                    torch.zeros_like(sel["point_info"]))
-                # association for the new frame: feature m_idx[i] -> slot i
-                write_to = torch.where(point_mask, sel["m_idx"],
-                                       torch.full_like(sel["m_idx"], K_feat))
-                assoc = _set_rows(
-                    torch.full((K_feat,), -1, dtype=torch.int32, device=dev),
-                    write_to,
-                    torch.where(point_mask, ar, torch.full_like(ar, -1)))
-                has = (assoc >= 0)
-                obs_rays = _set_rows(torch.zeros_like(f.rays), write_to,
-                                     sel["r2"])
-                obs_rays = torch.where(has[:, None], obs_rays, f.rays)
-                obs_sig = _set_rows(torch.ones_like(f.sigma), write_to,
-                                    sel["obs_sigma"])
-                obs_sig = torch.where(has, obs_sig, f.sigma)
-                ns = _store_frame(state, f, obs_rays=obs_rays,
-                                  obs_sigma=obs_sig, assoc=assoc)._replace(
-                    mode=torch.full_like(state.mode, MODE_TRACKING),
-                    pose_R=sel["R"], pose_t=sel["t"],
-                    map_pos=seeded((M, 3), dtype, sel["points"]),
-                    map_desc=seeded((M, 8), torch.int32, state.rb_desc[b]),
-                    map_tmpl=seeded((M,) + state.rb_tmpl.shape[2:], dtype,
-                                    state.rb_tmpl[b]),
-                    map_valid=seeded((M,), torch.bool, point_mask, False),
-                    map_seen=seeded((M,), torch.int32, step_or_none, -1),
-                    map_info=seeded((M, 3, 3), dtype, map_info_head),
-                    frame_tracked=state.frame_tracked + 1,
-                )
-                new_state = _ring_clear(ns)
-            else:
-                # slide the window: the new frame joins the ring
-                new_state = _ring_push(_store_frame(state, f), f)
-        out = _out(state, any_ok, new_state.mode, new_state.pose_R,
-                   new_state.pose_t, sel["n_inl"], sel["mean_err"], sel["t"],
-                   n_tried)
-        return new_state, out
+        step_or_none = torch.where(point_mask, state.step,
+                                   torch.full_like(ar, -1))
+        map_info_head = torch.where(
+            point_mask[:, None, None], sel["point_info"],
+            torch.zeros_like(sel["point_info"]))
+        # association for the new frame: feature m_idx[i] -> slot i
+        write_to = torch.where(point_mask, sel["m_idx"],
+                               torch.full_like(sel["m_idx"], K_feat))
+        assoc = _set_rows(
+            torch.full((K_feat,), -1, dtype=torch.int32, device=dev),
+            write_to, torch.where(point_mask, ar, torch.full_like(ar, -1)))
+        has = (assoc >= 0)
+        obs_rays = _set_rows(torch.zeros_like(f.rays), write_to, sel["r2"])
+        obs_rays = torch.where(has[:, None], obs_rays, f.rays)
+        obs_sig = _set_rows(torch.ones_like(f.sigma), write_to,
+                            sel["obs_sigma"])
+        obs_sig = torch.where(has, obs_sig, f.sigma)
+        ns = _store_frame(state, f, obs_rays=obs_rays, obs_sigma=obs_sig,
+                          assoc=assoc)._replace(
+            mode=torch.full_like(state.mode, MODE_TRACKING),
+            pose_R=sel["R"], pose_t=sel["t"],
+            map_pos=seeded((M, 3), dtype, sel["points"]),
+            map_desc=seeded((M, 8), torch.int32, state.rb_desc[b]),
+            map_tmpl=seeded((M,) + state.rb_tmpl.shape[2:], dtype,
+                            state.rb_tmpl[b]),
+            map_valid=seeded((M,), torch.bool, point_mask, False),
+            map_seen=seeded((M,), torch.int32, step_or_none, -1),
+            map_info=seeded((M, 3, 3), dtype, map_info_head),
+            frame_tracked=state.frame_tracked + 1,
+        )
+        return dict(new_state=_ring_clear(ns))
+
+    bootstrap = (("vo_jit.init.slots", init_slots),
+                 ("vo_jit.init.refine", init_refine),
+                 ("vo_jit.init.seed", init_seed))
+
+    def do_init(state, f, smooth, K_inv, focal, draws):
+        v = SimpleNamespace(state=state, f=f, smooth=smooth, K_inv=K_inv,
+                            focal=focal, draws=draws,
+                            thr_sq=p.max_error_sq / (focal * focal))
+        for name, stage in bootstrap:
+            with span(name):
+                vars(v).update(stage(v))
+        ns, sel = v.new_state, v.sel
+        out = _out(state, v.any_ok, ns.mode, ns.pose_R, ns.pose_t,
+                   sel["n_inl"], sel["mean_err"], sel["t"], v.n_tried)
+        return ns, out
 
     # ---- mode 2: tracking --------------------------------------------------
     # The four geometry stages read the frame, the state and the camera
@@ -728,59 +768,16 @@ def _make_vo_step_fns(params: VoJitParams = VoJitParams(),
                     obs_mask_ba=obs_mask_ba,
                     result=ba_mod.ba_solve(prob, ba_params))
 
-    geometry = (("vo_jit.track.associate", associate),
-                ("vo_jit.track.pnp", p3p_ransac),
-                ("vo_jit.track.triangulate", triangulate),
-                ("vo_jit.track.ba", bundle_adjust))
-    #: what the graphs were captured for (the inputs' devices, dtypes and
-    #: shapes, a focal given as a number) -> the graphs
-    track_graphs: dict = {}
-
-    def geometry_eager(inputs, draws, generator):
-        v = SimpleNamespace(**inputs)
-        for name, fn in geometry:
-            with span(name):
-                if fn is p3p_ransac:
-                    # the draw ``ransac.sample_minimal_sets`` makes
-                    v.uniforms = draws if draws is not None else torch.rand(
-                        (p.pnp_hypotheses, K_feat), generator=generator,
-                        device=v.xy.device)
-                vars(v).update(fn(v))
-        return v
-
-    def geometry_graphed(inputs, draws, generator):
-        dev = inputs["xy"].device
-        shape = (p.pnp_hypotheses, K_feat)
-        if draws is not None and tuple(draws.shape) != shape:
-            raise ValueError(f"uniforms of shape {tuple(draws.shape)}, the "
-                             f"PnP draws are {shape}")
-        u_dtype = torch.get_default_dtype() if draws is None else draws.dtype
-        key = _graph_key(inputs) + (u_dtype,)
-        with torch.cuda.device(dev):
-            graphs = track_graphs.get(key)
-            if graphs is None:
-                graphs = track_graphs[key] = _StageGraphs(
-                    [fn for _, fn in geometry],
-                    dict(inputs, uniforms=torch.zeros(shape, dtype=u_dtype,
-                                                      device=dev)))
-            v = graphs.v
-            with span("vo_jit.track.graphed"):
-                for graph, (name, fn) in zip(graphs.graphs, geometry):
-                    with span(name):
-                        if fn is associate:
-                            graphs.load(inputs)
-                        elif fn is p3p_ransac:
-                            if draws is None:      # the same draw
-                                torch.rand(shape, generator=generator,
-                                           out=v.uniforms)
-                            else:
-                                v.uniforms.copy_(draws)
-                        graph.replay()
-        return v
+    geometry = _StageRunner((associate, p3p_ransac, triangulate,
+                             bundle_adjust), cuda_graphs)
 
     def do_track(state, f, smooth, K_inv, focal, draws):
         dtype, dev = state.pose_t.dtype, state.pose_t.device
-        inputs = dict(
+        if draws is None:
+            # the draw ``ransac.sample_minimal_sets`` makes
+            draws = torch.rand((p.pnp_hypotheses, K_feat),
+                               generator=state.generator, device=dev)
+        run = geometry.start(dict(
             xy=f.xy, desc=f.desc, mask=f.mask, sigma=f.sigma, smooth=smooth,
             map_desc=state.map_desc, map_valid=state.map_valid,
             map_tmpl=state.map_tmpl, map_pos=state.map_pos,
@@ -789,15 +786,15 @@ def _make_vo_step_fns(params: VoJitParams = VoJitParams(),
             lf_rays=state.lf_rays, lf_assoc=state.lf_assoc,
             lf_obs_rays=state.lf_obs_rays, lf_obs_sigma=state.lf_obs_sigma,
             pose_R=state.pose_R, pose_t=state.pose_t, K_inv=K_inv,
-            focal=focal)
-        graphed = cuda_graphs and dev.type == "cuda"
-        v = (geometry_graphed if graphed else geometry_eager)(
-            inputs, draws, state.generator)
-
+            focal=focal, uniforms=draws))
+        with (span("vo_jit.track.graphed") if geometry.replays(dev)
+              else nullcontext()):
+            for name in ("vo_jit.track.associate", "vo_jit.track.pnp",
+                         "vo_jit.track.triangulate", "vo_jit.track.ba"):
+                with span(name):
+                    run.advance()
         # what outlives the frame is the step's own, not a graph's output
-        def own(t):
-            return t.clone() if graphed else t
-
+        v, own = run.v, run.own
         result = v.result
         with span("vo_jit.track.gate"):
             n_obs = torch.clamp(torch.sum(v.obs_mask_ba), min=1)
@@ -882,8 +879,8 @@ def _make_vo_step_fns(params: VoJitParams = VoJitParams(),
         f, smooth = preprocess(image, K_inv, focal)
         return combine_fn(state, f, smooth, K_inv, focal, draws)
 
-    step_fn.pre_graphs = preprocess.pre_graphs = pre_graphs
-    step_fn.track_graphs = combine_fn.track_graphs = track_graphs
+    step_fn.pre_graphs = preprocess.pre_graphs = features.captures
+    step_fn.track_graphs = combine_fn.track_graphs = geometry.captures
     return step_fn, preprocess, combine_fn
 
 

@@ -750,9 +750,9 @@ def test_outputs_held_from_a_frame_survive_the_next(graphed_and_eager):
 
 
 def test_graphed_step_consumes_the_draws_it_is_given(bench_scene):
-    """Draws given to a TRACKING frame go into the graph's P3P buffer, give
-    the eager step's bits on the same draws, and leave the generator as it
-    was."""
+    """Draws given to a TRACKING frame go into the geometry chain's input
+    buffer ``uniforms``, give the eager step's bits on the same draws, and
+    leave the generator as it was."""
     params, K_inv, focal, images = bench_scene
     dev = images.device
     graphed = vo_jit.make_vo_step(params)

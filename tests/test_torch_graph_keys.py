@@ -1,7 +1,8 @@
-"""What the tracker's CUDA graphs are keyed by (``vo_jit._graph_key``), on
-the CPU: the devices, dtypes and shapes of the inputs' tensors, one per
-tensor of a list or tuple (the pyramid's levels, the corner kernel's rank
-maps), and any other input's value (a focal given as a number). Another
+"""What the tracker's CUDA graphs are keyed by (``vo_jit._graph_key``, the
+key of each ``vo_jit._StageRunner``'s ``captures``), on the CPU: the
+devices, dtypes and shapes of the inputs' tensors, one per tensor of a
+list or tuple (the pyramid's levels, the corner kernel's rank maps), and
+any other input's value (a focal given as a number). Another
 image size keys another capture; the next frame's tensors, or another
 focal given as a tensor, key the same one. The captures themselves need a
 card (``tests/test_torch_cuda.py``).
