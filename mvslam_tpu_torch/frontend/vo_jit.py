@@ -13,20 +13,23 @@ mode switching — over a fixed-shape tensor state. Three modes:
   points -> anchored two-frame BA -> gated commit, or reset to mode 1.
 
 Control flow is on the host: one read of ``mode`` per frame selects the
-branch (the JAX ``lax.switch``), the bootstrap fallback walk reads one
-gate per ring slot tried, and accept/reject and commit/reset read one gate
-each. Everything else stays on the device.
+branch (the JAX ``lax.switch``), the bootstrap reads its ranking of the
+ring slots once and its fallback walk one gate per slot tried, and
+accept/reject and commit/reset read one gate each. Everything else stays on the device.
 
-The step runs as chains of stages over a namespace: the feature half
-after the corner kernel (the per-keypoint ORB, then the KLT templates),
-the TRACKING branch's four geometry stages (association, P3P-RANSAC on
-the frame's draw, triangulation, BA) and the bootstrap's three (slots,
-refine, seed), which run op by op. The first two read nothing on the host
-and have shapes fixed by the params and the image, and one
-``_StageRunner`` each runs them: on a CUDA device it captures the chain
-as CUDA graphs once per step function for each input shape and then
-replays it, one launch a stage, with the frame's tensors copied into the
-graphs' input buffers first; on the CPU the stages run op by op.
+The step runs as chains of stages over a namespace, each run by one
+``_StageRunner``: the feature half after the corner kernel (the
+per-keypoint ORB, then the KLT templates), the TRACKING branch's four
+geometry stages (association, P3P-RANSAC on the frame's draw,
+triangulation, BA), the bootstrap's candidates of every ring slot on the
+frame's draw (with the IRLS refits' ``eigh`` calls as eager stages
+between the others, since they read on the host) and its refine of one
+ranked slot. Their shapes are fixed by the params and the image: on a
+CUDA device a runner captures its chain as CUDA graphs once per step
+function for each input shape and then replays it, one launch a stage,
+with the frame's tensors copied into the graphs' input buffers first; on
+the CPU the stages run op by op. The reads above sit between the chains;
+the bootstrap's seed runs op by op.
 
 Randomness: the state carries a ``torch.Generator`` (the JAX state's PRNG
 key); the step advances it in place. ``step(..., draws=...)`` supplies the
@@ -47,6 +50,7 @@ from typing import NamedTuple
 
 import torch
 
+from mvslam_tpu_torch.math import linalg
 from mvslam_tpu_torch.math.lie import SE3
 from mvslam_tpu_torch.ops import ba as ba_mod
 from mvslam_tpu_torch.ops import (epipolar, klt, matching, pnp, ransac,
@@ -71,7 +75,8 @@ MODE_TRACKING = 2
 #: two parts; the state half, which reads the mode and runs one branch;
 #: TRACKING's span around its four geometry stages where they replay as
 #: CUDA graphs (on a CUDA device only), and its six stages; INITIALIZING's
-#: three; the first frame's
+#: span around its slots and refine walk where they replay as CUDA graphs
+#: (on a CUDA device only), and its three parts; the first frame's
 SPANS = (
     "vo_jit.pre", "vo_jit.pre.graphed", "vo_jit.pre.orb",
     "vo_jit.pre.templates",
@@ -80,8 +85,8 @@ SPANS = (
     "vo_jit.track.pnp",
     "vo_jit.track.triangulate", "vo_jit.track.ba", "vo_jit.track.gate",
     "vo_jit.track.commit",
-    "vo_jit.init", "vo_jit.init.slots", "vo_jit.init.refine",
-    "vo_jit.init.seed",
+    "vo_jit.init", "vo_jit.init.graphed", "vo_jit.init.slots",
+    "vo_jit.init.refine", "vo_jit.init.seed",
     "vo_jit.empty",
 )
 
@@ -288,6 +293,36 @@ def _graph_key(inputs: dict) -> tuple:
     return tuple((k, sig(t)) for k, t in inputs.items())
 
 
+def _buffers(values: dict) -> dict:
+    """``values`` with its tensors, and lists or tuples of them (kept as
+    tuples), cloned; other values as they are."""
+    out = dict(values)
+    for k, t in values.items():
+        ts = _tensors(t)
+        if ts is not None:
+            out[k] = (ts[0].clone() if isinstance(t, Tensor)
+                      else tuple(x.clone() for x in ts))
+    return out
+
+
+def _fill(v: SimpleNamespace, values: dict) -> None:
+    """Copy the tensors of ``values`` into the buffers of ``v`` that have
+    their names."""
+    for k, t in values.items():
+        ts = _tensors(t)
+        if ts is not None:
+            for dst, src in zip(_tensors(getattr(v, k)), ts):
+                dst.copy_(src)
+
+
+def _eager(fn):
+    """Mark ``fn`` an eager stage of a ``_StageRunner``: one that runs op by
+    op on every run, between the replays of the others, and returns only
+    tensors (or lists or tuples of them)."""
+    fn.eager = True
+    return fn
+
+
 class _StageRunner:
     """A chain of stages, run one at a time: ``start(inputs)``, then
     ``advance()`` once a stage. A stage is ``fn(v) -> {name: tensors}``
@@ -299,81 +334,100 @@ class _StageRunner:
     on the first run for each ``_graph_key`` and kept in ``captures`` with
     their own ``v``: its inputs are buffers that the first advance fills,
     its outputs stay where the capture put them and the next run
-    overwrites them, so a caller keeps them through ``own``. Elsewhere the
-    stages run op by op on a fresh ``v``."""
+    overwrites them, so a caller keeps them through ``own``. A stage marked
+    ``_eager`` is not captured: it runs op by op on every run (for what a
+    graph cannot hold, such as a call that reads on the host), and copies
+    its outputs into buffers that the capture made, from which the next
+    graph reads. Elsewhere the stages run op by op on a fresh ``v``."""
 
     def __init__(self, stages, cuda_graphs: bool):
         self.stages = tuple(stages)
         self.cuda_graphs = cuda_graphs
-        #: ``_graph_key`` of the inputs -> ``SimpleNamespace(v, graphs)``
+        #: ``_graph_key`` of the inputs -> ``SimpleNamespace(v, graphs)``,
+        #: ``graphs[i]`` None for an eager stage
         self.captures: dict = {}
 
     def replays(self, device: torch.device) -> bool:
         """Whether a run on inputs on ``device`` replays CUDA graphs."""
         return self.cuda_graphs and device.type == "cuda"
 
-    def start(self, inputs: dict) -> "_StageRunner":
-        self._next = 0
+    def prepare(self, inputs: dict):
+        """The capture for inputs like ``inputs``, made now if a run on them
+        replays and none is made yet; None where a run does not replay. Runs
+        nothing else."""
         dev = next(ts[0].device for ts in map(_tensors, inputs.values())
                    if ts)
         if not self.replays(dev):
-            self.v, self._graphs = SimpleNamespace(**inputs), None
-            return self
+            return None
         key = _graph_key(inputs)
         cap = self.captures.get(key)
         if cap is None:
             with torch.cuda.device(dev):
                 cap = self.captures[key] = self._capture(inputs)
+        return cap
+
+    def start(self, inputs: dict) -> "_StageRunner":
+        self._next = 0
+        cap = self.prepare(inputs)
+        if cap is None:
+            self.v, self._graphs = SimpleNamespace(**inputs), None
+            return self
         # the first advance loads ``inputs``; nothing keeps them after that
         self.v, self._graphs, self._load = cap.v, cap.graphs, inputs
         return self
 
     def advance(self) -> None:
         i, self._next = self._next, self._next + 1
+        fn = self.stages[i]
         if self._graphs is None:
-            vars(self.v).update(self.stages[i](self.v))
+            vars(self.v).update(fn(self.v))
             return
         if i == 0:
-            for k, t in self._load.items():
-                ts = _tensors(t)
-                if ts is not None:
-                    for dst, src in zip(_tensors(getattr(self.v, k)), ts):
-                        dst.copy_(src)
+            _fill(self.v, self._load)
             self._load = None
-        self._graphs[i].replay()
+        if self._graphs[i] is None:
+            _fill(self.v, fn(self.v))
+        else:
+            self._graphs[i].replay()
 
     def own(self, t: Tensor) -> Tensor:
         """``t`` as the caller's own: a graph's output is copied."""
         return t if self._graphs is None else t.clone()
 
     def _capture(self, inputs: dict) -> SimpleNamespace:
-        # tensors, and lists or tuples of them (kept as tuples), become the
-        # buffers; other values are constants of the graphs
-        named = dict(inputs)
-        for k, t in inputs.items():
-            ts = _tensors(t)
-            if ts is not None:
-                named[k] = (ts[0].clone() if isinstance(t, Tensor)
-                            else tuple(x.clone() for x in ts))
+        # tensors, and lists or tuples of them, become the buffers; other
+        # values are constants of the graphs
+        named = _buffers(inputs)
+        eager = {}
         stream = torch.cuda.Stream()
         stream.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(stream):
             # one eager pass first: handles and workspaces that are made on
-            # first use are made outside the capture
+            # first use are made outside the capture; copies of the eager
+            # stages' outputs become their buffers
             warm = SimpleNamespace(**named)
-            for fn in self.stages:
-                vars(warm).update(fn(warm))
+            for i, fn in enumerate(self.stages):
+                out = fn(warm)
+                if getattr(fn, "eager", False):
+                    eager[i] = _buffers(out)
+                vars(warm).update(out)
             del warm
         v = SimpleNamespace(**named)
         pool = torch.cuda.graph_pool_handle()
         graphs = []
-        for fn in self.stages:
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph, pool=pool, stream=stream,
-                                  capture_error_mode="thread_local"):
-                out = fn(v)
+        for i, fn in enumerate(self.stages):
+            graph = None
+            if i in eager:
+                out = eager[i]
+            else:
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graph, pool=pool, stream=stream,
+                                      capture_error_mode="thread_local"):
+                    out = fn(v)
             vars(v).update(out)
             graphs.append(graph)
+        # the eager stages' buffers are filled on the caller's stream
+        torch.cuda.current_stream().wait_stream(stream)
         return SimpleNamespace(v=v, graphs=graphs)
 
 
@@ -381,11 +435,13 @@ def _make_vo_step_fns(params: VoJitParams = VoJitParams(),
                       cuda_graphs: bool = True):
     """Build (step, preprocess, combine) for ``(state, image, K_inv,
     focal)``; ``focal`` may be a float or a 0-dim tensor. Without
-    ``cuda_graphs`` the feature half and the TRACKING branch run op by op
-    on a CUDA device too. ``step.pre_graphs`` (the same dict as
+    ``cuda_graphs`` every chain of stages runs op by op on a CUDA device
+    too. ``step.pre_graphs`` (the same dict as
     ``preprocess.pre_graphs``) and ``step.track_graphs`` (as
     ``combine.track_graphs``) hold the captured graphs by what they were
-    captured for."""
+    captured for, and ``step.init_graphs`` (as ``combine.init_graphs``)
+    the bootstrap's: ``{"slots": ..., "refine": ...}``, one such dict a
+    chain."""
     p = params
     K_feat = p.orb.max_features
     M = p.map_capacity
@@ -465,71 +521,122 @@ def _make_vo_step_fns(params: VoJitParams = VoJitParams(),
     # ---- mode 1: bootstrap vs the frame-ring window -----------------------
     # Two-view bootstrap against every ring slot, accepting the oldest slot
     # that passes the quality gates (falling back to younger ones when the
-    # refined-error gate fails). Three stages over ``v`` (the state, the
-    # frame, the camera and the draws), run as ``do_track``'s are but never
-    # as CUDA graphs: the first two read on the host.
-    def try_slot(v, draws, b):
-        """Cheap per-slot candidate: match + KLT + RANSAC + pose recovery +
-        the pre-refine quality gates."""
-        state, f, focal = v.state, v.f, v.focal
-        rb_desc, rb_rays = state.rb_desc[b], state.rb_rays[b]
-        m = matching.match_features(rb_desc, state.rb_mask[b], f.desc,
-                                    f.mask, p.max_match_distance)
-        if p.use_klt:
-            kr = klt.klt_track(state.rb_tmpl[b], v.smooth, f.xy[m.idx],
-                               m.mask)
-            xy2 = kr.xy
-            # on KLT failure the observation is the matched new-frame
-            # feature position, so the fallback sigma is that feature's
-            obs_sigma = torch.where(kr.valid, p.klt_sigma_px / focal,
-                                    f.sigma[m.idx])
-            klt_valid = kr.valid
-        else:
-            xy2 = f.xy[m.idx]
-            obs_sigma = f.sigma[m.idx]
-            klt_valid = m.mask
-        r2 = _to_rays(xy2, v.K_inv)
-        rr = ransac.essential_ransac(
-            rb_rays, r2, m.mask, num_hypotheses=p.ransac_hypotheses,
-            threshold_sq=v.thr_sq, uniforms=draws[b])
-        pose2in1, _, _ = sfm.recover_pose_and_points(
-            rr.model, rb_rays, r2, rr.inlier_mask)
-        w_rot = torch.amax(torch.abs(pose2in1.log()[3:]))
-        t_norm = torch.clamp(torch.linalg.vector_norm(pose2in1.t), min=1e-9)
-        tz = torch.abs(pose2in1.t[2]) / t_norm
-        n_inl = rr.num_inliers
-        ok = ((n_inl >= p.min_pair_inliers)
-              & (w_rot <= p.max_pair_rotation)
-              & (tz <= p.max_pair_z_translation)
-              & torch.all(torch.isfinite(pose2in1.t)))
-        return dict(ok=ok, R=pose2in1.R, t=pose2in1.t,
-                    inlier_mask=rr.inlier_mask, m_idx=m.idx, r2=r2,
-                    obs_sigma=obs_sigma, klt_valid=klt_valid, n_inl=n_inl)
+    # refined-error gate fails). Three parts: the slots' candidates, one
+    # ``_StageRunner`` chain over every ring slot, then one host read of
+    # the ranking; the refine walk, one replay of a one-stage chain and one
+    # host read of its gate per slot tried; the seed, op by op. Both chains
+    # replay as CUDA graphs where the geometry's do, but for their IRLS
+    # refits' ``eigh`` calls: on the card ``torch.linalg.eigh`` checks its
+    # result on the host, so they are the slot chain's eager stages, the
+    # same one-slot calls ``ransac.essential_ransac`` makes (a batched call
+    # may take another solver).
+    B = p.init_window
+    R = ransac.ESSENTIAL_REFITS
+    #: a slot's candidate, as the slot chain stacks it and refine takes it
+    CAND = ("ok", "R", "t", "inlier_mask", "m_idx", "r2", "obs_sigma",
+            "klt_valid", "n_inl")
 
-    def init_slots(v):
-        """Every ring slot's candidate, and the slots ranked oldest-passing
-        first (failing slots sort last), read on the host once."""
-        state, draws = v.state, v.draws
-        if draws is None:
-            draws = torch.rand((p.init_window, p.ransac_hypotheses, K_feat),
-                               generator=state.generator,
-                               device=state.pose_t.device)
-        slots = [try_slot(v, draws, b) for b in range(p.init_window)]
-        cand = {k: torch.stack([s[k] for s in slots]) for k in slots[0]}
-        ok_b = cand["ok"] & state.rb_valid
-        age = state.step - state.rb_step
+    def slot_hypotheses(v):
+        """Per ring slot: matches, KLT against the slot's templates, rays,
+        the RANSAC's best hypothesis and its first refit's Gram matrix."""
+        thr_sq = p.max_error_sq / (v.focal * v.focal)
+        out = dict(thr_sq=thr_sq, m_idx=[], m_mask=[], r2=[], obs_sigma=[],
+                   klt_valid=[], E=[], inl=[], w0=[], gram0=[])
+        for b in range(B):
+            m = matching.match_features(v.rb_desc[b], v.rb_mask[b], v.desc,
+                                        v.mask, p.max_match_distance)
+            if p.use_klt:
+                kr = klt.klt_track(v.rb_tmpl[b], v.smooth, v.xy[m.idx],
+                                   m.mask)
+                xy2 = kr.xy
+                # on KLT failure the observation is the matched new-frame
+                # feature position, so the fallback sigma is that feature's
+                obs_sigma = torch.where(kr.valid, p.klt_sigma_px / v.focal,
+                                        v.sigma[m.idx])
+                klt_valid = kr.valid
+            else:
+                xy2 = v.xy[m.idx]
+                obs_sigma = v.sigma[m.idx]
+                klt_valid = m.mask
+            r2 = _to_rays(xy2, v.K_inv)
+            E, inl = ransac.essential_hypotheses(
+                v.rb_rays[b], r2, m.mask, p.ransac_hypotheses, thr_sq,
+                uniforms=v.uniforms[b])
+            w, gram = ransac.refit_gram(E, inl, v.rb_rays[b], r2)
+            for k, t in dict(m_idx=m.idx, m_mask=m.mask, r2=r2,
+                             obs_sigma=obs_sigma, klt_valid=klt_valid, E=E,
+                             inl=inl, w0=w, gram0=gram).items():
+                out[k].append(t)
+        return out
+
+    def slot_eigh(k):
+        @_eager
+        def stage(v):
+            """Refit ``k``'s eigenvectors, one ``eigh`` a slot."""
+            return {f"V{k}": [linalg.eigh(g)[1]
+                              for g in getattr(v, f"gram{k}")]}
+        return stage
+
+    def slot_refit(k):
+        def stage(v):
+            """Refit ``k`` after its ``eigh``, then the next refit's Gram
+            matrix, or after the last the slots' candidates and ranking."""
+            V, w = getattr(v, f"V{k}"), getattr(v, f"w{k}")
+            fits = [ransac.refit_solve(V[b], w[b], v.rb_rays[b], v.r2[b],
+                                       v.m_mask[b], v.thr_sq)
+                    for b in range(B)]
+            if k + 1 == R:
+                return slot_ranking(v, fits)
+            nxt = [ransac.refit_gram(E, inl, v.rb_rays[b], v.r2[b])
+                   for b, (E, inl) in enumerate(fits)]
+            return {f"w{k + 1}": [wg for wg, _ in nxt],
+                    f"gram{k + 1}": [g for _, g in nxt]}
+        return stage
+
+    def slot_ranking(v, fits):
+        """Per slot the kept fit, the pose and the pre-refine quality
+        gates; the candidates stacked, and the slots ranked
+        oldest-passing first (failing slots sort last)."""
+        slots = []
+        for b, (E_fit, inl_fit) in enumerate(fits):
+            rb_rays, r2 = v.rb_rays[b], v.r2[b]
+            rr = ransac.keep_refit(v.E[b], v.inl[b], E_fit, inl_fit, rb_rays,
+                                   r2)
+            pose2in1, _, _ = sfm.recover_pose_and_points(
+                rr.model, rb_rays, r2, rr.inlier_mask)
+            w_rot = torch.amax(torch.abs(pose2in1.log()[3:]))
+            t_norm = torch.clamp(torch.linalg.vector_norm(pose2in1.t),
+                                 min=1e-9)
+            tz = torch.abs(pose2in1.t[2]) / t_norm
+            n_inl = rr.num_inliers
+            ok = ((n_inl >= p.min_pair_inliers)
+                  & (w_rot <= p.max_pair_rotation)
+                  & (tz <= p.max_pair_z_translation)
+                  & torch.all(torch.isfinite(pose2in1.t)))
+            slots.append(dict(ok=ok, R=pose2in1.R, t=pose2in1.t,
+                              inlier_mask=rr.inlier_mask, m_idx=v.m_idx[b],
+                              r2=r2, obs_sigma=v.obs_sigma[b],
+                              klt_valid=v.klt_valid[b], n_inl=n_inl))
+        cand = tuple(torch.stack([s[k] for s in slots]) for k in CAND)
+        ok_b = cand[0] & v.rb_valid
+        age = v.step - v.rb_step
         score = torch.where(ok_b, age, torch.full_like(age, -1))
-        order = torch.sort(-score, stable=True).indices
-        n_ok = torch.sum(ok_b)
-        host = torch.cat([n_ok.view(1), order]).tolist()
-        return dict(cand=cand, n_ok=host[0], order=host[1:])
+        return dict(cand=cand, order=torch.sort(-score, stable=True).indices,
+                    n_ok=torch.sum(ok_b))
 
-    def refine_slot(v, b):
-        """One Sampson polish + LM refine of ring slot ``b``; returns
-        (passed the error gate, the enriched selection)."""
-        state, dtype = v.state, v.state.pose_t.dtype
-        s = {k: t[b] for k, t in v.cand.items()}
-        rb_rays_b, rb_sigma_b = state.rb_rays[b], state.rb_sigma[b]
+    slot_stages = [slot_hypotheses]
+    for k in range(R):
+        slot_stages += [slot_eigh(k), slot_refit(k)]
+    slot_chain = _StageRunner(slot_stages, cuda_graphs)
+
+    def refine_slot(v):
+        """One Sampson polish + LM refine of ring slot ``v.b`` (a 0-dim
+        index on the device): whether it passed the error gate, and the
+        enriched selection."""
+        dtype = v.rb_rays.dtype
+        s = {k: ransac.take_best(t, v.b) for k, t in zip(CAND, v.cand)}
+        rb_rays_b = ransac.take_best(v.rb_rays, v.b)
+        rb_sigma_b = ransac.take_best(v.rb_sigma, v.b)
         r2, inl = s["r2"], s["inlier_mask"]
         pose2in1 = epipolar.refine_relative_pose_sampson(
             SE3(s["R"], s["t"]), rb_rays_b, r2, inl.to(dtype))
@@ -552,42 +659,64 @@ def _make_vo_step_fns(params: VoJitParams = VoJitParams(),
         n_obs = torch.clamp(2 * torch.sum(point_mask), min=1)
         mean_err = 2.0 * ref.error / n_obs.to(dtype)
         T = ref.pose2in1
-        passed = ((mean_err <= state.gate_pair_err.to(dtype))
+        passed = ((mean_err <= v.gate_pair_err.to(dtype))
                   & torch.all(torch.isfinite(T.t)))
-        return passed, dict(s, R=T.R, t=T.t, points=ref.points,
-                            point_info=ref.point_information,
-                            point_mask=point_mask, mean_err=mean_err)
+        return dict(passed=passed, sel=dict(
+            s, R=T.R, t=T.t, points=ref.points,
+            point_info=ref.point_information, point_mask=point_mask,
+            mean_err=mean_err))
 
-    def init_refine(v):
+    refine_chain = _StageRunner((refine_slot,), cuda_graphs)
+
+    def init_slots(state, f, smooth, K_inv, focal, draws):
+        """Every ring slot's candidate; the ranking read on the host once:
+        (the chain's run, slots passing, slots in ranked order)."""
+        run = slot_chain.start(dict(
+            rb_desc=state.rb_desc, rb_mask=state.rb_mask,
+            rb_tmpl=state.rb_tmpl, rb_rays=state.rb_rays,
+            rb_valid=state.rb_valid, rb_step=state.rb_step, step=state.step,
+            desc=f.desc, mask=f.mask, xy=f.xy, sigma=f.sigma, smooth=smooth,
+            K_inv=K_inv, focal=focal, uniforms=draws))
+        for _ in slot_stages:
+            run.advance()
+        n_ok, *order = torch.cat([run.v.n_ok.view(1), run.v.order]).tolist()
+        return run, n_ok, order
+
+    def init_refine(state, focal, slots, n_ok, order):
         """Walk the ranked slots until one passes the refined-error gate
-        (one host read per slot; typically one slot)."""
-        dev = v.state.pose_t.device
-        kw = dict(dtype=v.state.pose_t.dtype, device=dev)
-        b = v.order[0]
-        sel = dict({k: t[b] for k, t in v.cand.items()},
-                   points=torch.zeros((K_feat, 3), **kw),
-                   point_info=torch.zeros((K_feat, 3, 3), **kw),
-                   point_mask=torch.zeros(K_feat, dtype=torch.bool,
-                                          device=dev),
-                   mean_err=torch.full((), math.inf, **kw))
-        n_tried, any_ok = 0, False
-        for i in range(v.n_ok):
-            b = v.order[i]
-            passed, sel = refine_slot(v, b)
-            n_tried = i + 1
-            if bool(passed):
-                any_ok = True
-                break
-        return dict(b=b, sel=sel, n_tried=n_tried, any_ok=any_ok)
+        (one replay and one host read per slot; typically one slot):
+        (slot, the selection as the step's own, slots tried, passed)."""
+        cand = slots.v.cand
 
-    def init_seed(v):
-        """Seed the map from the accepted slot, or slide the window."""
-        state, f = v.state, v.f
-        if not v.any_ok:
-            # slide the window: the new frame joins the ring
-            return dict(new_state=_ring_push(_store_frame(state, f), f))
+        def inputs(b):
+            return dict(cand=cand, rb_rays=state.rb_rays,
+                        rb_sigma=state.rb_sigma,
+                        gate_pair_err=state.gate_pair_err, focal=focal, b=b)
+
+        # captured on the first bootstrap whether a slot passes or not, so
+        # that no later frame captures
+        refine_chain.prepare(inputs(slots.v.order[0]))
+        for i in range(n_ok):
+            run = refine_chain.start(inputs(slots.v.order[i]))
+            run.advance()
+            if bool(run.v.passed):
+                return (order[i], {k: run.own(t) for k, t in
+                                   run.v.sel.items()}, i + 1, True)
+        if n_ok:
+            return (order[n_ok - 1], {k: run.own(t) for k, t in
+                                      run.v.sel.items()}, n_ok, False)
+        dev = state.pose_t.device
+        kw = dict(dtype=state.pose_t.dtype, device=dev)
+        return order[0], dict(
+            {k: slots.own(t[order[0]]) for k, t in zip(CAND, cand)},
+            points=torch.zeros((K_feat, 3), **kw),
+            point_info=torch.zeros((K_feat, 3, 3), **kw),
+            point_mask=torch.zeros(K_feat, dtype=torch.bool, device=dev),
+            mean_err=torch.full((), math.inf, **kw)), 0, False
+
+    def init_seed(state, f, b, sel):
+        """Seed the map from the accepted slot ``b``."""
         dtype, dev = state.pose_t.dtype, state.pose_t.device
-        b, sel = v.b, v.sel
         point_mask = sel["point_mask"]
         # seed map: slot i <- base feature i (masked); the selected ring
         # frame becomes the world frame
@@ -628,22 +757,30 @@ def _make_vo_step_fns(params: VoJitParams = VoJitParams(),
             map_info=seeded((M, 3, 3), dtype, map_info_head),
             frame_tracked=state.frame_tracked + 1,
         )
-        return dict(new_state=_ring_clear(ns))
-
-    bootstrap = (("vo_jit.init.slots", init_slots),
-                 ("vo_jit.init.refine", init_refine),
-                 ("vo_jit.init.seed", init_seed))
+        return _ring_clear(ns)
 
     def do_init(state, f, smooth, K_inv, focal, draws):
-        v = SimpleNamespace(state=state, f=f, smooth=smooth, K_inv=K_inv,
-                            focal=focal, draws=draws,
-                            thr_sq=p.max_error_sq / (focal * focal))
-        for name, stage in bootstrap:
-            with span(name):
-                vars(v).update(stage(v))
-        ns, sel = v.new_state, v.sel
-        out = _out(state, v.any_ok, ns.mode, ns.pose_R, ns.pose_t,
-                   sel["n_inl"], sel["mean_err"], sel["t"], v.n_tried)
+        dev = state.pose_t.device
+        if draws is None:
+            # the draws ``ransac.sample_minimal_sets`` makes, every slot's
+            draws = torch.rand((B, p.ransac_hypotheses, K_feat),
+                               generator=state.generator, device=dev)
+        with (span("vo_jit.init.graphed") if slot_chain.replays(dev)
+              else nullcontext()):
+            with span("vo_jit.init.slots"):
+                slots, n_ok, order = init_slots(state, f, smooth, K_inv,
+                                                focal, draws)
+            with span("vo_jit.init.refine"):
+                b, sel, n_tried, any_ok = init_refine(state, focal, slots,
+                                                      n_ok, order)
+        with span("vo_jit.init.seed"):
+            if any_ok:
+                ns = init_seed(state, f, b, sel)
+            else:
+                # slide the window: the new frame joins the ring
+                ns = _ring_push(_store_frame(state, f), f)
+        out = _out(state, any_ok, ns.mode, ns.pose_R, ns.pose_t,
+                   sel["n_inl"], sel["mean_err"], sel["t"], n_tried)
         return ns, out
 
     # ---- mode 2: tracking --------------------------------------------------
@@ -881,6 +1018,8 @@ def _make_vo_step_fns(params: VoJitParams = VoJitParams(),
 
     step_fn.pre_graphs = preprocess.pre_graphs = features.captures
     step_fn.track_graphs = combine_fn.track_graphs = geometry.captures
+    step_fn.init_graphs = combine_fn.init_graphs = dict(
+        slots=slot_chain.captures, refine=refine_chain.captures)
     return step_fn, preprocess, combine_fn
 
 

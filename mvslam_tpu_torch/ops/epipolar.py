@@ -76,17 +76,28 @@ def _cubic_roots_real(c3: Tensor, c2: Tensor, c1: Tensor, c0: Tensor) -> Tensor:
     return s - a[..., None] / 3.0
 
 
+def _dlt_gram(p1: Tensor, p2: Tensor, weights: Tensor,
+              use_eigh: bool = False) -> Tensor:
+    """The weighted DLT's Gram matrix ``A^T A``, (..., 9, 9)."""
+    A = _dlt_rows(p1, p2) * weights[..., None]
+    At = A.transpose(-1, -2)
+    return At @ A if use_eigh else fma.fma_matmul(At, A)
+
+
+def _span_of_eigvecs(V: Tensor) -> tuple[Tensor, Tensor]:
+    """The two smallest-eigenvalue solutions of ``eigh``'s eigenvectors
+    (..., 9, 9) (ascending eigenvalues), (..., 3, 3) each."""
+    shape = V.shape[:-2] + (3, 3)
+    return V[..., :, 0].reshape(shape), V[..., :, 1].reshape(shape)
+
+
 def _solve_epipolar_span(p1: Tensor, p2: Tensor, weights: Tensor,
                          use_eigh: bool = False) -> tuple[Tensor, Tensor]:
     """Two smallest-eigenvalue DLT solutions, (..., 3, 3) each."""
-    A = _dlt_rows(p1, p2) * weights[..., None]
-    At = A.transpose(-1, -2)
-    AtA = At @ A if use_eigh else fma.fma_matmul(At, A)
+    AtA = _dlt_gram(p1, p2, weights, use_eigh)
     if use_eigh:
-        _, V = linalg.eigh(AtA)                 # ascending eigenvalues
-        v1, v2 = V[..., :, 0], V[..., :, 1]
-    else:
-        v1, v2 = linalg.smallest_eigvecs2_psd(AtA)
+        return _span_of_eigvecs(linalg.eigh(AtA)[1])
+    v1, v2 = linalg.smallest_eigvecs2_psd(AtA)
     shape = AtA.shape[:-2] + (3, 3)
     return v1.reshape(shape), v2.reshape(shape)
 
@@ -165,9 +176,30 @@ def find_essential_matrix(r1: Tensor, r2: Tensor, weights: Tensor,
     """Essential matrix (``|E|_F = 1``) from ideal-camera rays (..., N, 3),
     batched: DLT null span, det-cubic candidates, essential projection,
     best by weighted Sampson error."""
+    E1, E2 = _solve_epipolar_span(r1[..., :2], r2[..., :2], weights,
+                                  use_eigh=use_eigh)
+    return _essential_of_span(E1, E2, r1, r2, weights)
+
+
+def essential_gram(r1: Tensor, r2: Tensor, weights: Tensor) -> Tensor:
+    """``find_essential_matrix(..., use_eigh=True)`` up to its ``eigh``:
+    the Gram matrix (..., 9, 9) that :func:`essential_of_eigvecs` takes
+    the eigenvectors of."""
+    return _dlt_gram(r1[..., :2], r2[..., :2], weights, use_eigh=True)
+
+
+def essential_of_eigvecs(V: Tensor, r1: Tensor, r2: Tensor,
+                         weights: Tensor) -> Tensor:
+    """``find_essential_matrix(..., use_eigh=True)`` after its ``eigh``,
+    given the eigenvectors ``V`` of :func:`essential_gram`'s matrix."""
+    E1, E2 = _span_of_eigvecs(V)
+    return _essential_of_span(E1, E2, r1, r2, weights)
+
+
+def _essential_of_span(E1: Tensor, E2: Tensor, r1: Tensor, r2: Tensor,
+                       weights: Tensor) -> Tensor:
     p1 = r1[..., :2]
     p2 = r2[..., :2]
-    E1, E2 = _solve_epipolar_span(p1, p2, weights, use_eigh=use_eigh)
     cands = _project_essential(_span_candidates(E1, E2))
     h1 = torch.cat([p1, torch.ones_like(p1[..., :1])], dim=-1)
     h2 = torch.cat([p2, torch.ones_like(p2[..., :1])], dim=-1)
@@ -268,7 +300,11 @@ def decompose_essential_matrix(E: Tensor) -> tuple[Tensor, Tensor]:
     the order (R1, +t), (R1, -t), (R2, +t), (R2, -t)."""
     U, _, Vt = linalg.svd3x3(E)
     W = torch.zeros(3, 3, dtype=E.dtype, device=E.device)
-    W[0, 1], W[1, 0], W[2, 2] = -1.0, 1.0, 1.0
+    # fills, not item assignments: those copy a host scalar, which a CUDA
+    # graph cannot capture
+    W[0, 1].fill_(-1.0)
+    W[1, 0].fill_(1.0)
+    W[2, 2].fill_(1.0)
     one = torch.ones((), dtype=E.dtype, device=E.device)
     U = U * torch.where(linalg.det3(U) < 0, -one, one)[..., None, None]
     Vt = Vt * torch.where(linalg.det3(Vt) < 0, -one, one)[..., None, None]

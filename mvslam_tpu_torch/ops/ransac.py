@@ -14,6 +14,7 @@ from typing import NamedTuple
 
 import torch
 
+from mvslam_tpu_torch.math import linalg
 from mvslam_tpu_torch.ops import epipolar
 
 Tensor = torch.Tensor
@@ -62,6 +63,62 @@ def _select_best(errors: Tensor, mask: Tensor, threshold_sq):
     return torch.argmax(score), inl, counts
 
 
+#: the IRLS refits of ``essential_ransac``'s ``refit``
+ESSENTIAL_REFITS = 3
+
+
+def essential_hypotheses(r1: Tensor, r2: Tensor, mask: Tensor,
+                         num_hypotheses: int = 256, threshold_sq=5e-2,
+                         generator: torch.Generator | None = None,
+                         uniforms: Tensor | None = None
+                         ) -> tuple[Tensor, Tensor]:
+    """``essential_ransac``'s batched 8-point hypotheses and the best of
+    them by the squared Sampson error: (E, its inlier mask (N,))."""
+    idx = sample_minimal_sets(mask, num_hypotheses, 8, generator, uniforms)
+    s1, s2 = r1[idx], r2[idx]
+    w = torch.ones(idx.shape, dtype=r1.dtype, device=r1.device)
+    Es = epipolar.find_essential_matrix(s1, s2, w)
+    errors = epipolar.sampson_error(Es, r1[None], r2[None])
+    best, inl, _ = _select_best(errors, mask, threshold_sq)
+    return take_best(Es, best), take_best(inl, best)
+
+
+def refit_gram(E_fit: Tensor, inl_fit: Tensor, r1: Tensor, r2: Tensor
+               ) -> tuple[Tensor, Tensor]:
+    """One IRLS refit up to its ``eigh``: the Sampson weights of the
+    consensus set and their DLT's Gram matrix, (N,) and (9, 9)."""
+    w_geo = torch.sqrt(epipolar.sampson_weights(E_fit, r1, r2)) \
+        * inl_fit.to(r1.dtype)
+    return w_geo, epipolar.essential_gram(r1, r2, w_geo)
+
+
+def refit_solve(V: Tensor, w_geo: Tensor, r1: Tensor, r2: Tensor,
+                mask: Tensor, threshold_sq) -> tuple[Tensor, Tensor]:
+    """One IRLS refit after its ``eigh`` (eigenvectors ``V`` of
+    :func:`refit_gram`'s matrix): the refit E and its inlier mask."""
+    E_fit = epipolar.essential_of_eigvecs(V, r1, r2, w_geo)
+    err_fit = epipolar.sampson_error(E_fit, r1, r2)
+    return E_fit, (err_fit < threshold_sq) & mask
+
+
+def keep_refit(E: Tensor, best_inl: Tensor, E_fit: Tensor, inl_fit: Tensor,
+               r1: Tensor, r2: Tensor) -> RansacResult:
+    """The refit where it loses no inliers, else the hypothesis."""
+    better = torch.sum(inl_fit) >= torch.sum(best_inl)
+    return essential_result(torch.where(better, E_fit, E),
+                            torch.where(better, inl_fit, best_inl), r1, r2)
+
+
+def essential_result(E: Tensor, inl: Tensor, r1: Tensor, r2: Tensor
+                     ) -> RansacResult:
+    """``essential_ransac``'s result for the model ``E`` and its inliers."""
+    return RansacResult(
+        model=E, inlier_mask=inl,
+        num_inliers=torch.sum(inl).to(torch.int32),
+        residuals=epipolar.sampson_error(E, r1, r2),
+    )
+
+
 def essential_ransac(r1: Tensor, r2: Tensor, mask: Tensor,
                      num_hypotheses: int = 256, threshold_sq=5e-2,
                      refit: bool = True,
@@ -70,34 +127,19 @@ def essential_ransac(r1: Tensor, r2: Tensor, mask: Tensor,
     """Essential matrix from ideal-camera rays (N, 3) by batched 8-point
     RANSAC on the squared Sampson error, then (``refit``) three IRLS
     Sampson-weighted refits on the consensus set, kept only if they lose no
-    inliers."""
-    idx = sample_minimal_sets(mask, num_hypotheses, 8, generator, uniforms)
-    s1, s2 = r1[idx], r2[idx]
-    w = torch.ones(idx.shape, dtype=r1.dtype, device=r1.device)
-    Es = epipolar.find_essential_matrix(s1, s2, w)
-    errors = epipolar.sampson_error(Es, r1[None], r2[None])
-    best, inl, _ = _select_best(errors, mask, threshold_sq)
-    E = take_best(Es, best)
-    best_inl = take_best(inl, best)
-
-    if refit:
-        E_fit, inl_fit = E, best_inl
-        for _ in range(3):
-            w_geo = torch.sqrt(epipolar.sampson_weights(E_fit, r1, r2)) \
-                * inl_fit.to(r1.dtype)
-            E_fit = epipolar.find_essential_matrix(r1, r2, w_geo,
-                                                   use_eigh=True)
-            err_fit = epipolar.sampson_error(E_fit, r1, r2)
-            inl_fit = (err_fit < threshold_sq) & mask
-        better = torch.sum(inl_fit) >= torch.sum(best_inl)
-        E = torch.where(better, E_fit, E)
-        best_inl = torch.where(better, inl_fit, best_inl)
-
-    return RansacResult(
-        model=E, inlier_mask=best_inl,
-        num_inliers=torch.sum(best_inl).to(torch.int32),
-        residuals=epipolar.sampson_error(E, r1, r2),
-    )
+    inliers. Composed of :func:`essential_hypotheses`, per refit
+    :func:`refit_gram`, ``eigh`` and :func:`refit_solve`, then
+    :func:`keep_refit`."""
+    E, best_inl = essential_hypotheses(r1, r2, mask, num_hypotheses,
+                                       threshold_sq, generator, uniforms)
+    if not refit:
+        return essential_result(E, best_inl, r1, r2)
+    E_fit, inl_fit = E, best_inl
+    for _ in range(ESSENTIAL_REFITS):
+        w_geo, gram = refit_gram(E_fit, inl_fit, r1, r2)
+        _, V = linalg.eigh(gram)                # ascending eigenvalues
+        E_fit, inl_fit = refit_solve(V, w_geo, r1, r2, mask, threshold_sq)
+    return keep_refit(E, best_inl, E_fit, inl_fit, r1, r2)
 
 
 def fundamental_ransac(p1: Tensor, p2: Tensor, mask: Tensor,

@@ -14,9 +14,13 @@ batched layout equal to the unrolled one, subpixel against the CPU) and
 the distributed solvers on a one-rank NCCL group (bitwise the ungrouped
 solves). The two-view, PnP and BA solves of the reference's rigs in
 float64 and float32. The tracker's CUDA graphs against its op-by-op step,
-bit for bit: the geometry stages and the feature half after K1 (one
+bit for bit: the geometry stages, the feature half after K1 (one
 capture per image shape and ORB layout, K1 still one eager launch a frame
-that the benchmark's tap sees, outputs that outlive the next replay).
+that the benchmark's tap sees, outputs that outlive the next replay) and
+the bootstrap's slot and refine chains (the refits' ``eigh`` calls eager
+between replays, the refine walk's fallback and slide, one capture per
+chain kept across the reset, given draws, state that outlives the next
+bootstrap).
 Every test needs a CUDA card
 and skips without one; this file imports no JAX, so on the card it runs as
 
@@ -684,45 +688,198 @@ def bench_scene():
     return trk.params, trk.K_inv, trk.focal, images
 
 
-@pytest.fixture(scope="module")
-def graphed_and_eager(bench_scene):
-    """Both trackers over the scene from one seed: per frame the entering
-    mode, each side's (name, tensor) fields as returned, and a copy of the
-    graphed side's fields made right after its step; the graphed step's
-    graphs after the first TRACKING frame and at the end."""
+def _init_graphs(step):
+    """A copy of ``step.init_graphs``: each chain's captures."""
+    return {k: dict(c) for k, c in step.init_graphs.items()}
+
+
+class _SpanLog:
+    """The names of the spans the step opens, one list a frame: a wrapper
+    around ``vo_jit.span`` while in a ``with``."""
+
+    def __init__(self):
+        self.frames = []
+
+    def __enter__(self):
+        self._orig = orig = vo_jit.span
+
+        def logged(name):
+            if self.frames:
+                self.frames[-1].append(name)
+            return orig(name)
+
+        vo_jit.span = logged
+        return self
+
+    def __exit__(self, *exc):
+        vo_jit.span = self._orig
+
+
+def _run_both(bench_scene, seed, frames=None, gates=()):
+    """Both trackers over the scene (or its first ``frames``) from
+    ``seed``, with the refined-error gate set to ``gates[t]`` on both sides
+    before each frame ``t`` it names: per frame the entering mode, each
+    side's (name, tensor) fields as returned, a copy of the graphed side's
+    fields made right after its step, and the spans the graphed step
+    opened; the graphed step's graphs after the first TRACKING frame,
+    after the first bootstrap and at the end."""
     params, K_inv, focal, images = bench_scene
     dev = images.device
     graphed = vo_jit.make_vo_step(params)
     eager, _, _ = vo_jit._make_vo_step_fns(params, cuda_graphs=False)
-    s_g = vo_init_state(params, device=dev, seed=7)
-    s_e = vo_init_state(params, device=dev, seed=7)
-    rec = dict(modes=[], graphed=[], eager=[], copies=[], first=None)
-    for t in range(images.shape[0]):
-        rec["modes"].append(int(s_g.mode))
-        s_g, o_g = graphed(s_g, images[t], K_inv, focal)
-        s_e, o_e = eager(s_e, images[t], K_inv, focal)
-        got = _fields(s_g, o_g)
-        rec["graphed"].append(got)
-        rec["copies"].append([(k, v.clone()) for k, v in got])
-        rec["eager"].append(_fields(s_e, o_e))
-        if rec["first"] is None and graphed.track_graphs:
-            rec["first"] = dict(graphed.track_graphs)
-        if t == 0:
-            rec["pre_first"] = dict(graphed.pre_graphs)
+    s_g = vo_init_state(params, device=dev, seed=seed)
+    s_e = vo_init_state(params, device=dev, seed=seed)
+    rec = dict(modes=[], graphed=[], eager=[], copies=[], first=None,
+               init_first=None)
+    with _SpanLog() as log:
+        for t in range(images.shape[0] if frames is None else frames):
+            if t in gates:
+                s_g, s_e = (s._replace(gate_pair_err=torch.full_like(
+                    s.gate_pair_err, gates[t])) for s in (s_g, s_e))
+            rec["modes"].append(int(s_g.mode))
+            log.frames.append([])
+            s_g, o_g = graphed(s_g, images[t], K_inv, focal)
+            s_e, o_e = eager(s_e, images[t], K_inv, focal)
+            got = _fields(s_g, o_g)
+            rec["graphed"].append(got)
+            rec["copies"].append([(k, v.clone()) for k, v in got])
+            rec["eager"].append(_fields(s_e, o_e))
+            if rec["first"] is None and graphed.track_graphs:
+                rec["first"] = dict(graphed.track_graphs)
+            if (rec["init_first"] is None
+                    and rec["modes"][-1] == vo_jit.MODE_INITIALIZING):
+                rec["init_first"] = _init_graphs(graphed)
+            if t == 0:
+                rec["pre_first"] = dict(graphed.pre_graphs)
+    rec["spans"] = log.frames
     rec["last"] = dict(graphed.track_graphs)
     rec["pre_last"] = dict(graphed.pre_graphs)
+    rec["init_last"] = _init_graphs(graphed)
     assert not eager.track_graphs and not eager.pre_graphs
+    assert not any(eager.init_graphs.values())
     return rec
 
 
-def test_graphed_tracker_equals_eager_bitwise(graphed_and_eager):
-    """Replaying the geometry stages gives the eager step's bits: every
-    field of state and output on every frame, through bootstrap, TRACKING,
-    the reset and the re-entry."""
-    rec = graphed_and_eager
+@pytest.fixture(scope="module")
+def graphed_and_eager(bench_scene):
+    """``_run_both`` over the scene from tracker seed 7."""
+    return _run_both(bench_scene, 7)
+
+
+def _assert_graphed_equals_eager(rec):
     for t, (g, e) in enumerate(zip(rec["graphed"], rec["eager"])):
         for (name, a), (_, b) in zip(g, e):
             assert _same_bits(a, b), (t, name)
+
+
+def _init_tried(rec, t):
+    return int(dict(rec["graphed"][t])["out.init_tried"])
+
+
+def _success(rec, t):
+    return bool(dict(rec["graphed"][t])["out.success"])
+
+
+def test_graphed_tracker_equals_eager_bitwise(graphed_and_eager):
+    """Replaying the geometry stages and the bootstrap's chains gives the
+    eager step's bits: every field of state and output on every frame,
+    through bootstrap, TRACKING, the reset and the re-entry."""
+    _assert_graphed_equals_eager(graphed_and_eager)
+
+
+def test_every_bootstrap_frame_replays(graphed_and_eager):
+    """Each frame that enters INITIALIZING opens ``vo_jit.init.graphed``
+    around its slots and refine walk; the scene's bootstraps include one
+    accepted and, right after the blank frame's reset, one where no slot
+    passes and the window slides."""
+    rec = graphed_and_eager
+    init = [t for t, m in enumerate(rec["modes"])
+            if m == vo_jit.MODE_INITIALIZING]
+    assert init and BLANK + 1 in init
+    for t, names in enumerate(rec["spans"]):
+        want = t in init
+        assert ("vo_jit.init.graphed" in names) == want, t
+        if want:
+            i = names.index("vo_jit.init.graphed")
+            assert names[i + 1:i + 3] == ["vo_jit.init.slots",
+                                          "vo_jit.init.refine"], t
+    assert any(_success(rec, t) for t in init)
+    assert not _success(rec, BLANK + 1)
+    assert _init_tried(rec, BLANK + 1) == 0
+
+
+def test_bootstrap_captures_once_and_replays_across_the_reset(
+        graphed_and_eager):
+    """One capture of each bootstrap chain, made on the first bootstrap
+    frame, and replayed on every later one: after the reset and at the
+    re-entry no chain captures again."""
+    rec = graphed_and_eager
+    first, last = rec["init_first"], rec["init_last"]
+    assert set(first) == {"slots", "refine"}
+    for chain in ("slots", "refine"):
+        assert len(first[chain]) == 1, chain
+        assert list(last[chain].items()) == list(first[chain].items())
+    # the IRLS refits' eigh calls are the slot chain's eager stages
+    (slots,) = first["slots"].values()
+    eager = [g is None for g in slots.graphs]
+    assert eager == [False] + [True, False] * 3
+
+
+def test_state_from_a_bootstrap_survives_the_next_bootstrap(
+        graphed_and_eager):
+    """The pose a bootstrap seeds the state with, and its output, are the
+    step's own: a later bootstrap's replays leave them as they were
+    returned."""
+    rec = graphed_and_eager
+    init = [t for t, m in enumerate(rec["modes"])
+            if m == vo_jit.MODE_INITIALIZING]
+    accepted = [t for t in init if _success(rec, t)]
+    assert len(accepted) >= 2 and accepted[0] < BLANK < accepted[-1]
+    t = accepted[0]
+    for (name, a), (_, b) in zip(rec["graphed"][t], rec["copies"][t]):
+        if name == "state.generator":
+            continue
+        assert _same_bits(a, b), name
+    # and none of them is a buffer of the chains' captures
+    (slots,) = rec["init_last"]["slots"].values()
+    (refine,) = rec["init_last"]["refine"].values()
+    buffers = {x.data_ptr() for x in list(slots.v.cand)
+               + list(refine.v.sel.values())}
+    for k in (t, accepted[-1]):
+        held = dict(rec["graphed"][k])
+        for name in ("state.pose_R", "state.pose_t", "out.pose_R",
+                     "out.pose_t", "out.num_inliers", "out.mean_error",
+                     "out.pnp_t"):
+            assert held[name].data_ptr() not in buffers, (k, name)
+
+
+#: the refine walk's other cases on the scene, found on the card: from
+#: tracker seed 0 under a refined-error gate of 1e-9 every bootstrap
+#: refines its ranked slots and rejects them all (three on frame 3), and
+#: at frame 4 a gate of 0.005 rejects the oldest slot (refined mean error
+#: 0.0067) and accepts the next (0.0034)
+WALK_SEED, WALK_GATES, WALK_FRAMES = 0, {0: 1e-9, 4: 5e-3}, 10
+
+
+@pytest.fixture(scope="module")
+def walk_run(bench_scene):
+    return _run_both(bench_scene, WALK_SEED, WALK_FRAMES, WALK_GATES)
+
+
+def test_refine_walk_replays_with_eager_bits(walk_run):
+    """Bootstraps whose walk refines several slots and accepts none (the
+    window slides), and one that falls back from the oldest slot to the
+    next, replay the refine chain once a slot tried, with the eager
+    step's bits on every frame."""
+    rec = walk_run
+    walks = [(t, _init_tried(rec, t), _success(rec, t))
+             for t, m in enumerate(rec["modes"])
+             if m == vo_jit.MODE_INITIALIZING]
+    assert any(k >= 2 and not ok for _, k, ok in walks), walks
+    assert (4, 2, True) in walks, walks
+    for t, _, _ in walks:
+        assert "vo_jit.init.graphed" in rec["spans"][t], t
+    _assert_graphed_equals_eager(rec)
 
 
 def test_reset_and_reentry_replay_without_a_new_capture(graphed_and_eager):
@@ -778,6 +935,37 @@ def test_graphed_step_consumes_the_draws_it_is_given(bench_scene):
             assert torch.equal(graphs.v.uniforms, draws)
             assert torch.equal(s_g.generator.get_state(), before)
     assert given >= 5
+
+
+def test_graphed_bootstrap_consumes_the_draws_it_is_given(bench_scene):
+    """Draws given to a bootstrap frame go into the slot chain's input
+    buffer ``uniforms``, give the eager step's bits on the same draws, and
+    leave the generator as it was."""
+    params, K_inv, focal, images = bench_scene
+    dev = images.device
+    graphed = vo_jit.make_vo_step(params)
+    eager, _, _ = vo_jit._make_vo_step_fns(params, cuda_graphs=False)
+    s_g = vo_init_state(params, device=dev, seed=5)
+    s_e = vo_init_state(params, device=dev, seed=5)
+    gen = torch.Generator(device=dev).manual_seed(13)
+    given = 0
+    for t in list(range(4)) + list(range(BLANK - 1, BLANK + 4)):
+        draws = None
+        if int(s_g.mode) == vo_jit.MODE_INITIALIZING:
+            draws = torch.rand((params.init_window, params.ransac_hypotheses,
+                                params.orb.max_features), generator=gen,
+                               device=dev)
+            before = s_g.generator.get_state()
+        s_g, o_g = graphed(s_g, images[t], K_inv, focal, draws)
+        s_e, o_e = eager(s_e, images[t], K_inv, focal, draws)
+        for (name, a), (_, b) in zip(_fields(s_g, o_g), _fields(s_e, o_e)):
+            assert _same_bits(a, b), (t, name)
+        if draws is not None:
+            given += 1
+            (slots,) = graphed.init_graphs["slots"].values()
+            assert torch.equal(slots.v.uniforms, draws)
+            assert torch.equal(s_g.generator.get_state(), before)
+    assert given >= 2
 
 
 def test_feature_half_captures_once_and_replays_across_the_reset(

@@ -26,6 +26,7 @@ own bar. (a) rerun here; (b) an existing test already asserts the bar;
 | `test_sfm.py::test_sfm_solve_jits_and_caches` | a | `test_sfm_solve_succeeds_under_two_generators` (no `jax.jit` in the port: what it asserts, padded inputs solved under two draws) |
 | `test_sfm.py::test_fundamental_ransac_pixel_space` | a | `test_fundamental_ransac_pixel_space` |
 | (repair) | | `test_a_refit_whose_eigh_fails_keeps_the_hypothesis`: the refit's eigh no longer raises where JAX returns NaN |
+| (port) | | `test_essential_ransac_is_its_pieces_composed`: the pieces the tracker's bootstrap replays between its `eigh` calls |
 | `test_ba.py::test_sfm_refine_noiseless_stays_exact` | a | `test_sfm_refine_noiseless_stays_exact` |
 | `test_ba.py::test_sfm_refine_recovers_under_noise` | a | `test_sfm_refine_recovers_under_noise` |
 | `test_ba.py::test_ba_cost_decreases_and_masks_ignored` | a | `test_ba_cost_decreases_and_masks_ignored` |
@@ -51,6 +52,7 @@ from mvslam_tpu.ops import p3p as jp3p
 from mvslam_tpu.ops import pnp as jpnp
 from mvslam_tpu.ops import ransac as jrs
 from mvslam_tpu.ops import sfm as jsfm
+from mvslam_tpu_torch.math import linalg
 from mvslam_tpu_torch.math.lie import SE3
 from mvslam_tpu_torch.ops import ba, epipolar, p3p, pnp, ransac, sfm
 from mvslam_tpu_torch.ops import triangulate
@@ -183,6 +185,47 @@ def test_sfm_solve_rejects_outliers(dt):
                        jsfm.SfmParams(num_hypotheses=512, threshold_sq=1e-4))
     np.testing.assert_array_equal(inl, np.asarray(want.inlier_mask))
     assert jpose_err(want.pose2in1, result.pose2in1) < 10 * dt.tol
+
+
+@pytest.mark.parametrize("refit", [True, False])
+def test_essential_ransac_is_its_pieces_composed(dt, refit):
+    """``ransac.essential_ransac`` is its pieces in order, bit for bit: the
+    hypotheses and their best, per IRLS refit the Gram matrix, one
+    ``linalg.eigh`` and the solve after it, then the keep test (the split
+    that the tracker's bootstrap replays as CUDA graphs between its eager
+    ``eigh`` calls). The eigh path of ``find_essential_matrix`` is likewise
+    its Gram matrix, ``eigh`` and the solve after it. On
+    ``test_sfm_solve_rejects_outliers``' rays, where the refits move."""
+    rng = np.random.default_rng(7)
+    n_in, n_out = 48, 16
+    pts = dt.t(np.c_[rng.uniform(-2, 2, (n_in, 2)), rng.uniform(4, 9, n_in)])
+    pose2in1 = se3(rpy(0.02, -0.01, 0.03), [0.8, -0.36, 0.48], dt)
+    r1 = project_ideal(SE3.identity(dtype=dt.torch), pts)
+    r2 = project_ideal(pose2in1, pts)
+    r2[n_in - n_out:, :2] += dt.t(rng.uniform(-0.5, 0.5, (n_out, 2)))
+    mask = torch.ones(n_in, dtype=torch.bool)
+    mask[5] = False
+    u, thr = jax_uniforms(3, 256, n_in), 1e-4
+    got = ransac.essential_ransac(r1, r2, mask, 256, thr, refit=refit,
+                                  uniforms=u)
+    E, inl = ransac.essential_hypotheses(r1, r2, mask, 256, thr, uniforms=u)
+    if refit:
+        E_fit, inl_fit = E, inl
+        for _ in range(ransac.ESSENTIAL_REFITS):
+            w, gram = ransac.refit_gram(E_fit, inl_fit, r1, r2)
+            V = linalg.eigh(gram)[1]
+            E_fit, inl_fit = ransac.refit_solve(V, w, r1, r2, mask, thr)
+            same = epipolar.find_essential_matrix(r1, r2, w, use_eigh=True)
+            assert torch.equal(same, epipolar.essential_of_eigvecs(
+                linalg.eigh(epipolar.essential_gram(r1, r2, w))[1], r1, r2,
+                w))
+            assert torch.equal(same, E_fit)
+        want = ransac.keep_refit(E, inl, E_fit, inl_fit, r1, r2)
+    else:
+        want = ransac.essential_result(E, inl, r1, r2)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert int(got.num_inliers) >= n_in - n_out - 1
 
 
 @pytest.mark.parametrize("rig_type", [CUBE, L_SHAPE])

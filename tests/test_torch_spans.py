@@ -1,11 +1,11 @@
 """The tracker step's spans (``vo_jit.SPANS``, ``utils.timing.span``) on the
 CPU: under ``torch.profiler`` a run that bootstraps and then tracks gives
-every span but ``vo_jit.pre.graphed`` and ``vo_jit.track.graphed``, nested
-and in the order ``vo_jit.py`` lists them, and the spans change nothing
-the tracker computes: poses, modes and state are bit-equal with the
-profiler on and off, same seed and same draws. The two ``.graphed`` spans
-mark the CUDA graphs' replays: a tracker on the CPU builds no graph and
-never opens them, and its step is the one
+every span but ``vo_jit.pre.graphed``, ``vo_jit.track.graphed`` and
+``vo_jit.init.graphed``, nested and in the order ``vo_jit.py`` lists them,
+and the spans change nothing the tracker computes: poses, modes and state
+are bit-equal with the profiler on and off, same seed and same draws. The
+three ``.graphed`` spans mark the CUDA graphs' replays: a tracker on the
+CPU builds no graph and never opens them, and its step is the one
 ``vo_jit._make_vo_step_fns(..., cuda_graphs=False)`` gives, bit for bit.
 
 4 frames of the two-plane scene (240x320, focal 280, slanted background)
@@ -44,6 +44,8 @@ def _parent(name):
 GRAPHED = "vo_jit.track.graphed"
 #: opened only where the feature half replays as CUDA graphs
 PRE_GRAPHED = "vo_jit.pre.graphed"
+#: opened only where the bootstrap's slots and refine replay as CUDA graphs
+INIT_GRAPHED = "vo_jit.init.graphed"
 
 
 def _run(profiled, step=None):
@@ -73,6 +75,7 @@ def _run(profiled, step=None):
     else:
         run()
     assert not step.track_graphs and not step.pre_graphs
+    assert not any(step.init_graphs.values())
     return states, outs, events
 
 
@@ -101,8 +104,8 @@ def test_spans_nest_in_the_listed_order(runs):
     spans = sorted(((e.start_ns(), -e.duration_ns(), e.name(),
                      e.start_ns() + e.duration_ns()) for e in events
                     if e.name().startswith("vo_jit.")))
-    assert {s[2] for s in spans} == set(vo_jit.SPANS) - {GRAPHED,
-                                                         PRE_GRAPHED}
+    assert {s[2] for s in spans} == set(vo_jit.SPANS) - {
+        GRAPHED, PRE_GRAPHED, INIT_GRAPHED}
     # one frame per "vo_jit.pre"; each frame's spans in the listed order
     frames, stack = [], []
     for a, _, name, b in spans:
@@ -118,7 +121,8 @@ def test_spans_nest_in_the_listed_order(runs):
             "vo_jit.combine"]
     track = [n for n in vo_jit.SPANS
              if n.startswith("vo_jit.track") and n != GRAPHED]
-    init = [n for n in vo_jit.SPANS if n.startswith("vo_jit.init")]
+    init = [n for n in vo_jit.SPANS
+            if n.startswith("vo_jit.init") and n != INIT_GRAPHED]
     assert frames == [head + ["vo_jit.empty"], head + init,
                       head + track, head + track]
     for names in frames:
@@ -141,6 +145,22 @@ def test_pre_graphed_span_is_listed_around_the_feature_stages():
     assert vo_jit.SPANS[i - 1] == "vo_jit.pre"
     assert vo_jit.SPANS[i + 1:i + 3] == ("vo_jit.pre.orb",
                                          "vo_jit.pre.templates")
+
+
+def test_init_graphed_span_is_listed_around_the_slots_and_refine():
+    i = vo_jit.SPANS.index(INIT_GRAPHED)
+    assert vo_jit.SPANS[i - 1] == "vo_jit.init"
+    assert vo_jit.SPANS[i + 1:i + 4] == ("vo_jit.init.slots",
+                                         "vo_jit.init.refine",
+                                         "vo_jit.init.seed")
+
+
+def test_cpu_tracker_never_opens_the_init_graphed_span(runs):
+    _, (_, outs, events) = runs
+    names = [e.name() for e in events]
+    assert names.count("vo_jit.init.slots") == 1
+    assert names.count("vo_jit.init.refine") == 1
+    assert INIT_GRAPHED not in names
 
 
 def test_cpu_tracker_never_opens_the_graphed_span(runs):

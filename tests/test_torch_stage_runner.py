@@ -2,9 +2,11 @@
 PnP draw it takes as an input.
 
 Off the card a runner runs its stages op by op on a fresh namespace, in
-order, whatever ``cuda_graphs`` says, captures nothing and hands outputs
-on as they are (``own`` copies only a graph's outputs; the captures and
-their bits are held on the card by ``tests/test_torch_cuda.py``). A
+order, whatever ``cuda_graphs`` says, an eager stage (``vo_jit._eager``,
+on the card the one that runs between replays) in its place like any
+other, captures nothing and hands outputs on as they are (``own`` copies
+only a graph's outputs; the captures and their bits are held on the card
+by ``tests/test_torch_cuda.py``). A
 TRACKING frame draws its P3P uniforms once, before the geometry chain
 starts: the generator moves by exactly one ``(pnp_hypotheses, K)`` draw,
 and the step given that draw as ``draws`` computes the same bits and
@@ -57,6 +59,47 @@ def test_runner_runs_its_stages_op_by_op_off_the_card(cuda_graphs):
     assert runner.captures == {}
     # the next run starts from a fresh namespace
     assert not hasattr(runner.start(dict(x=x, c=1.0)).v, "z")
+
+
+@pytest.mark.parametrize("cuda_graphs", [True, False])
+def test_eager_stage_runs_in_its_place_off_the_card(cuda_graphs):
+    """A stage marked ``_eager`` (on the card: run op by op between the
+    replays of the others) is off the card one more stage of the chain:
+    run in its place, its outputs added under their names for the stages
+    after it, nothing captured, a fresh namespace each run."""
+    seen = []
+
+    def gram(v):
+        seen.append("gram")
+        return dict(g=[x[:, None] * x[None, :] + torch.eye(3) for x in v.x])
+
+    @vo_jit._eager
+    def solve(v):
+        seen.append("solve")
+        return dict(V=[torch.linalg.eigh(g)[1] for g in v.g])
+
+    def pick(v):
+        seen.append("pick")
+        return dict(first=torch.stack([V[:, -1] for V in v.V]))
+
+    assert solve.eager and not hasattr(gram, "eager")
+    runner = vo_jit._StageRunner((gram, solve, pick), cuda_graphs)
+    xs = [torch.tensor([1.0, 2.0, 2.0]), torch.tensor([0.0, 3.0, 4.0])]
+    run = runner.start(dict(x=xs))
+    run.advance()
+    assert seen == ["gram"] and not hasattr(run.v, "V")
+    run.advance()
+    assert seen == ["gram", "solve"] and len(run.v.V) == 2
+    for g, V in zip(run.v.g, run.v.V):
+        assert torch.equal(V, torch.linalg.eigh(g)[1])
+    run.advance()
+    assert seen == ["gram", "solve", "pick"]
+    # each leading eigenvector is its x, normalised, up to sign
+    for x, e in zip(xs, run.v.first):
+        assert torch.allclose(torch.abs(e), x / torch.linalg.norm(x),
+                              atol=1e-6)
+    assert runner.captures == {} and runner.prepare(dict(x=xs)) is None
+    assert not hasattr(runner.start(dict(x=xs)).v, "first")
 
 
 @pytest.fixture(scope="module")
