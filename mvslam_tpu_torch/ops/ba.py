@@ -175,6 +175,22 @@ def _cost(poses: SE3, points: Tensor, prob: BAProblem,
     return psum(c_obs + c_point, group) + c_pose
 
 
+def huber_share(poses: SE3, points: Tensor, prob: BAProblem,
+                huber_delta: float | None) -> Tensor:
+    """The share (0-dim, in [0, 1]) of the valid observations whose
+    whitened residual norm at ``poses``, ``points`` exceeds
+    ``huber_delta``: those the Huber kernel down-weights there. Zero where
+    ``huber_delta`` is None or no observation is valid."""
+    dtype, dev = points.dtype, points.device
+    if huber_delta is None:
+        return torch.zeros((), dtype=dtype, device=dev)
+    r, _, _ = _projection_residuals(poses, points, prob)
+    robust = prob.obs_mask & (torch.linalg.vector_norm(r, dim=-1)
+                              > huber_delta)
+    n = torch.clamp(torch.sum(prob.obs_mask), min=1)
+    return torch.sum(robust).to(dtype) / n.to(dtype)
+
+
 def _normal_equations(poses: SE3, points: Tensor, prob: BAProblem,
                       huber_delta: float | None = None, group=None):
     """(Hcc (F,6,6), Hpp (P,3,3), Hcp (F,P,6,3), bc (F,6), bp (P,3)),

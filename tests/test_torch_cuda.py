@@ -20,7 +20,8 @@ that the benchmark's tap sees, outputs that outlive the next replay) and
 the bootstrap's slot and refine chains (the refits' ``eigh`` calls eager
 between replays, the refine walk's fallback and slide, one capture per
 chain kept across the reset, given draws, state that outlives the next
-bootstrap).
+bootstrap); the same at the KITTI cell's size (1241x376, 2,000 features,
+4,096 map slots, a BA over 1,536 + 512 points, the Huber kernel on).
 Every test needs a CUDA card
 and skips without one; this file imports no JAX, so on the card it runs as
 
@@ -665,17 +666,17 @@ def _fields(state, out):
     return got + [(f"out.{k}", v) for k, v in out._asdict().items()]
 
 
-@pytest.fixture(scope="module")
-def bench_scene():
-    """The cell's tracker params, K_inv, focal (a tensor, as the benchmark
-    passes it) and frames as the served loop hands them over."""
+def _cell_scene(workload):
+    """A cell's tracker params, K_inv, focal (a tensor, as the benchmark
+    passes it) and its first ``GRAPH_FRAMES`` frames as the served loop
+    hands them over, frame ``BLANK`` black."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     from slambench import cell as bench_cell
     from slambench import program, reference, scene
 
     dev = torch.device("cuda", 0)
-    c = bench_cell.resolve("tsukuba.track")
+    c = bench_cell.resolve(workload)
     tr = c.traffic
     u8 = torch.empty((GRAPH_FRAMES, c.camera.height, c.camera.width),
                      dtype=torch.uint8)
@@ -686,6 +687,12 @@ def bench_scene():
     images[BLANK] = 0.0
     trk = program.tracker(c.config, c.camera.K(), dev)
     return trk.params, trk.K_inv, trk.focal, images
+
+
+@pytest.fixture(scope="module")
+def bench_scene():
+    """The tsukuba.track cell's scene (``_cell_scene``)."""
+    return _cell_scene("tsukuba.track")
 
 
 def _init_graphs(step):
@@ -1100,3 +1107,65 @@ def test_both_orb_layouts_capture(bench_scene, batched, subpixel):
                 e_pre(images[t], K_inv, focal))):
             assert _same_bits(a, b), (t, name)
     assert len(g_pre.pre_graphs) == 1
+
+
+# -- the KITTI deployment's sizes ---------------------------------------------
+
+@pytest.fixture(scope="module")
+def kitti_run():
+    """``_run_both`` over the kitti.track cell's scene from tracker seed 7:
+    2,000 features a frame, 4,096 map slots, the BA over 1,536 + 512
+    points with the Huber kernel on."""
+    scene = _cell_scene("kitti.track")
+    return scene[0], _run_both(scene, 7)
+
+
+def test_kitti_graphed_tracker_equals_eager_bitwise(kitti_run):
+    """At the KITTI sizes with Huber on, the three chains replay with the
+    op-by-op step's bits on every field of every frame: bootstrap frames,
+    accepted TRACKING frames, the blank frame's reset and the re-entry."""
+    params, rec = kitti_run
+    assert params.orb.max_features == 2000 and params.map_capacity == 4096
+    assert (params.ba_old, params.ba_new) == (1536, 512)
+    assert params.huber_delta == pytest.approx(2.4477)
+    modes = rec["modes"]
+    tracking = [t for t, m in enumerate(modes) if m == vo_jit.MODE_TRACKING]
+    init = [t for t, m in enumerate(modes)
+            if m == vo_jit.MODE_INITIALIZING]
+    assert init and BLANK + 1 in init and any(t > BLANK + 1 for t in tracking)
+    assert sum(_success(rec, t) for t in tracking) >= 10
+    assert any(_success(rec, t) for t in init)
+    assert modes[BLANK + 1] == vo_jit.MODE_INITIALIZING
+    _assert_graphed_equals_eager(rec)
+    for chain in ("slots", "refine"):
+        assert len(rec["init_last"][chain]) == 1, chain
+    assert len(rec["last"]) == 1 and len(rec["pre_last"]) == 1
+
+
+def test_kitti_counters_on_the_device():
+    """The counter pass of the traced run (``slambench/counters.py``, the
+    op-by-op step with the BA tapped) on the card at the KITTI sizes: the
+    profiled TRACKING frames' keypoints at the budget (every level of the
+    pyramid has more corners than its share), the BA's robust share a
+    share that the Huber kernel makes non-zero on some frame, and the tap
+    taken off after the pass."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from slambench import cell as bench_cell
+    from slambench import counters, scene, serve
+
+    dev = torch.device("cuda", 0)
+    c = bench_cell.resolve("kitti.track")
+    tr = c.traffic
+    n = tr.profile_start + serve.PROFILE_CAP * tr.profile_frames
+    u8 = torch.empty((n, c.camera.height, c.camera.width), dtype=torch.uint8)
+    scene.render_uint8(torch.Generator(device=dev).manual_seed(GRAPH_SEED),
+                       tr.ts[:n], tr.yaws[:n], c.camera, tr.bg_slope, u8)
+    ba = vo_jit.ba_mod
+    got = counters.counter_pass(c, u8, dev)
+    assert vo_jit.ba_mod is ba
+    kp, robust = got["n_keypoints"], got["ba_robust"]
+    assert len(kp) == len(robust) == tr.profile_frames
+    assert min(kp) >= 1900 and max(kp) <= 2000
+    assert all(0.0 <= r <= 1.0 for r in robust) and max(robust) > 0.0
+
