@@ -1,7 +1,9 @@
-"""GPU smoke run of the PyTorch port: builds the CUDA corner kernel, checks
-both of its wrappers against its plain version, times its one launch per
-pyramid (eager call, CUDA-graph replay) beside the plain version and the
-card's bound, checks the 8-point DLT solver on the card against the CPU
+"""GPU smoke run of the PyTorch port: builds the CUDA corner kernel (K1) and
+the two-frame BA kernel (K2), checks both of K1's wrappers against its
+plain version, times its one launch per pyramid (eager call, CUDA-graph
+replay) beside the plain version and the card's bound, checks K2 against
+the plain BA body in float32 and float64 at the tracker's shapes and times
+it the same way, checks the 8-point DLT solver on the card against the CPU
 and float64 eigh and times it (``solver``), checks the tracker on the card
 against the tracker on the CPU, holds the port to the JAX package's own
 tests' bars on the card (``reference bars``: the 40-frame yawing sequence
@@ -48,6 +50,7 @@ import collections
 import contextlib
 import hashlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -78,18 +81,24 @@ from mvslam_tpu_torch.io.checkpoint import load_checkpoint, save_checkpoint
 from mvslam_tpu_torch.math import fma, linalg
 from mvslam_tpu_torch.math.lie import SE3, so3_exp, so3_from_rpy, so3_log
 from mvslam_tpu_torch.ops import ba as ba_dense
-from mvslam_tpu_torch.ops import ba_sparse, features, features_cuda, pnp, sfm
+from mvslam_tpu_torch.ops import (
+    ba_cuda, ba_sparse, features, features_cuda, pnp, sfm,
+)
 from mvslam_tpu_torch.ops.camera import PinholeCamera
 from mvslam_tpu_torch.parallel import dist_ba_sparse
 from mvslam_tpu_torch.parallel.synthetic import (
     make_sequence_ba_problem, make_window_ba_problem,
 )
+from mvslam_tpu_torch.utils import cuda_build
 from mvslam_tpu_torch.utils.scene import ellipse_loop, render_planes_sequence
 from mvslam_tpu_torch.utils.timing import cuda_ms, graph_ms, sync_sites
 from mvslam_tpu_torch.viz import Visualizer2d, load_trajectory_tum
 
 KERNEL_SOURCE = "mvslam_tpu_torch/csrc/fast_nms_harris.cu"
 KERNEL_REPLACES = "mvslam_tpu/ops/features_pallas.py:142"
+BA_KERNEL_SOURCE = "mvslam_tpu_torch/csrc/ba_two_frame.cu"
+#: no TPU kernel: the JAX package leaves the LM loop to XLA
+BA_KERNEL_REPLACES = "the plain LM loop of mvslam_tpu_torch/ops/ba.py"
 #: where float32 resolves the bottom subspace (eigenvalues 0, 1e-10, 1e-3,
 #: ... of the scale for the pair; 0, 0.05, ... for one vector), the
 #: solver's span against float64 eigh (radians): the float32 rounding of
@@ -291,6 +300,49 @@ H100_F32_FLOPS = 67e12
 FLOPS_PER_PIXEL = 24 + 26 + 10
 FLOPS_PER_CANDIDATE = 64 + 2 * 79 + 2
 FLOPS_PER_CORNER = 147 + 8
+#: float32 operations of the two-frame BA kernel, a point an iteration,
+#: counted from its source: two observations linearised (~200), Hpp and bp
+#: (~130), the 3x3 inverse (~40), Hcp and W (~290), the point's 90 terms of
+#: the reduced system (~760) and their column sums (90), the point's step
+#: (~90) and the candidate's cost (~90). Bytes a point, read or written
+#: once: point, prior and information, two observations, masks and
+#: weights in (86); point and information out (48).
+BA_FLOPS_PER_POINT_ITERATION = 1700
+BA_BYTES_PER_POINT = 86 + 48
+
+#: the two-frame BA at the main path's shapes: tsukuba.track's 512 points
+#: and kitti.track's 2,048, Huber off and at the KITTI deployment's
+#: sqrt(5.991); the tracker's settings (10 iterations, the first pose held
+#: by a 1e10 prior, map priors on three quarters of the points)
+BA_POINTS = (512, 2048)
+#: the settings the cells run, timed: (points, Huber)
+BA_TIMED = ((512, False), (2048, True))
+BA_HUBER = math.sqrt(5.991)
+BA_FOCAL = 718.856
+BA_SEED = 20
+#: How far the kernel's solve and the plain body's, both float32 on the
+#: card, may lie from the plain body's float64 solve on the same problem
+#: where that has converged in the tracker's 10 iterations: the largest
+#: rotation between their poses (rad), the largest pose centre gap over
+#: the baseline, the largest point gap in the float64 solve's sigmas, the
+#: cost's relative gap. tests/test_torch_cuda_ba.py's TOL_SETTLED: a few
+#: times the largest the plain float32 body reads over 64 seeds of its
+#: settled cases (1.1e-6 rad, 9.9e-5, 0.028 sigma, 1.2e-6). A float32
+#: neighbour of the minimum passes, a wrong term does not.
+BA_TOL = (4e-6, 4e-4, 0.1, 5e-6)
+#: Where the float64 solve is still descending at the cap (the problems
+#: with Huber on), both float32 solves stop at neighbouring iterates: the
+#: poses and the cost within a few times what the plain float32 body reads
+#: on these problems on an H100 (at 2,048 points 3.1e-6 rad, 2.8e-4 of the
+#: baseline, 3.1e-3 of the cost; the kernel 1.3e-6, 8.5e-5, 1.8e-3). The
+#: point gap is not held: the float64 solve's point information counts a
+#: down-weighted observation at full weight.
+BA_TOL_UNSETTLED = (2e-5, 2e-3, math.inf, 1e-2)
+#: K2's wrapper calls on each driven path, each count set to 0 just
+#: before that path's run and read just after: one per eager launch and
+#: one per CUDA-graph capture (a replay launches a captured kernel again
+#: with no host call)
+BA_CALLS: dict[str, int] = {}
 
 
 def log(msg: str) -> None:
@@ -439,6 +491,168 @@ def phase_kernel(dev, orb: features.OrbParams):
                 device_ms=min(ms_device, ms_device2),
                 plain_ms=min(ms_plain, ms_plain2),
                 bound_ms=bound["bound_ms"], bound_by=bound["bound_by"])
+
+
+@contextlib.contextmanager
+def ba_calls(path: str):
+    """Count K2's wrapper calls while ``path`` runs, into
+    ``BA_CALLS[path]``."""
+    ba_cuda.two_frame_solve.launches = 0
+    yield
+    BA_CALLS[path] = ba_cuda.two_frame_solve.launches
+
+
+def ba_problem(points: int, huber: bool, dev, dtype) -> ba_dense.BAProblem:
+    """The tracker's two-frame BA on a made-up pair: two poses 0.12 apart,
+    ``points`` points 5-20 units ahead seen on the ideal plane with
+    0.25-1 px of noise (weights focal / sigma px), a twentieth of the
+    observations of the points with a prior masked; with ``huber`` a
+    hundredth of the second frame's observations moved by 10-30 px (the
+    KITTI cell's Huber share is 0.1-0.2%). The start is the truth
+    perturbed; the first pose is held by the tracker's 1e10 prior, the
+    first three quarters of the points by map priors at 0.05 units. The
+    same numbers in every dtype."""
+    rng = np.random.default_rng([BA_SEED, points, int(huber)])
+    P = points
+
+    def rot(w):
+        return so3_exp(torch.tensor(w)).numpy()
+
+    R = np.stack([rot(rng.normal(0, 0.01, 3)), rot(rng.normal(0, 0.01, 3))])
+    t = np.array([[0.0, 0.0, 0.0], [0.12, 0.01, 0.02]])
+    X = np.c_[rng.uniform(-4, 4, P), rng.uniform(-1.5, 1.5, P),
+              rng.uniform(5, 20, P)]
+    sig = rng.uniform(0.25, 1.0, (2, P))
+    obs = np.zeros((2, P, 2))
+    for f in range(2):
+        Xc = (X - t[f]) @ R[f]
+        obs[f] = (Xc[:, :2] / Xc[:, 2:]
+                  + rng.normal(0, 1, (P, 2)) * sig[f, :, None] / BA_FOCAL)
+    if huber:
+        bad = rng.random(P) < 0.01
+        obs[1, bad] += (rng.uniform(10, 30, (int(bad.sum()), 2))
+                        * rng.choice([-1, 1], (int(bad.sum()), 2))
+                        / BA_FOCAL)
+    held = np.arange(P) < 3 * P // 4
+    mask = (rng.random((2, P)) > 0.05) | ~held
+    R0, t0 = R.copy(), t.copy()
+    R0[1] = R[1] @ rot(rng.normal(0, 0.002, 3))
+    t0[1] = t[1] + rng.normal(0, 0.01, 3)
+    X0 = X + rng.normal(0, 0.05, X.shape)
+    info = np.where(held[:, None, None], np.eye(3) / 0.05 ** 2, 0.0)
+    pose_info = np.zeros((2, 6, 6))
+    pose_info[0] = 1e10 * np.eye(6)
+
+    def T(a):
+        return torch.tensor(a, dtype=dtype, device=dev)
+
+    poses0 = SE3(T(R0), T(t0))
+    return ba_dense.BAProblem.create(
+        poses0, T(X0), T(obs), torch.tensor(mask, device=dev),
+        T(BA_FOCAL / sig), pose_prior=poses0, pose_prior_info=T(pose_info),
+        point_prior=T(X0), point_prior_info=T(info))
+
+
+def ba_gaps(res, ref) -> tuple[float, float, float, float]:
+    """``res`` against ``ref`` as ``BA_TOL`` measures: the largest rotation
+    between their poses, the largest centre gap over the baseline, the
+    largest point gap in ``ref``'s sigmas, the cost's relative gap."""
+    f64 = torch.float64
+    R, t, X, rR, rt, rX, info = (x.detach().cpu().to(f64) for x in (
+        res.poses.R, res.poses.t, res.points, ref.poses.R, ref.poses.t,
+        ref.points, ref.point_information))
+    rot = float(so3_log(R.transpose(-1, -2) @ rR).norm(dim=-1).max())
+    trans = float((t - rt).norm(dim=-1).max() / (rt[1] - rt[0]).norm())
+    d = X - rX
+    point = float(torch.einsum("pi,pij,pj->p", d, info, d)
+                  .clamp(min=0).sqrt().max())
+    cost = abs(float(res.error) / float(ref.error) - 1)
+    return rot, trans, point, cost
+
+
+def ba_bits(res) -> list:
+    return [x.reshape(-1).view(torch.uint8) for x in (
+        res.poses.R, res.poses.t, res.points, res.error, res.iterations,
+        res.converged, res.point_information)]
+
+
+def phase_ba_kernel(dev) -> dict:
+    """K2 on the card at the main path's shapes (BA_POINTS, Huber off and
+    on): one launch a solve, the same bits from two calls, and the
+    kernel's solve and the plain body's, both float32, within BA_TOL of
+    the plain body's float64 solve (BA_TOL_UNSETTLED where that has not
+    converged in the 10 iterations); then the cells' settings (512 points
+    without Huber, 2,048 with) timed as eager calls and CUDA-graph replays
+    beside the plain body's replay and the card's bound."""
+    gaps, times = [], {}
+    for P in BA_POINTS:
+        for huber in (False, True):
+            params = ba_dense.BAParams(
+                max_iterations=10, compute_covariance=False,
+                compute_point_info=True,
+                huber_delta=BA_HUBER if huber else None)
+            prob = ba_problem(P, huber, dev, torch.float32)
+            n = ba_cuda.two_frame_solve.launches
+            k2 = ba_dense.ba_solve(prob, params)
+            if ba_cuda.two_frame_solve.launches != n + 1:
+                raise AssertionError("a two-frame solve is not one launch")
+            again = ba_dense.ba_solve(prob, params)
+            plain = ba_dense.ba_solve_plain(prob, params)
+            ref = ba_dense.ba_solve_plain(
+                ba_problem(P, huber, dev, torch.float64), params)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(ba_bits(k2),
+                                                         ba_bits(again))):
+                raise AssertionError(f"two K2 calls differ, {P} points")
+            g_k2, g_plain = ba_gaps(k2, ref), ba_gaps(plain, ref)
+            what = (f"{P} points, Huber {'on' if huber else 'off'}: "
+                    f"iterations {int(k2.iterations)} / "
+                    f"{int(plain.iterations)} / {int(ref.iterations)}, "
+                    f"kernel {', '.join(f'{g:.2e}' for g in g_k2)}, plain "
+                    f"float32 {', '.join(f'{g:.2e}' for g in g_plain)}")
+            tol = BA_TOL if bool(ref.converged) else BA_TOL_UNSETTLED
+            what += f" (bound {tol})"
+            gaps.append(what)
+            if not all(a <= b for g in (g_k2, g_plain) for a, b in zip(g, tol)):
+                raise AssertionError(f"two-frame BA beyond its bound: {what}")
+            if (P, huber) not in BA_TIMED:
+                continue
+            # plain, kernel (eager, then replayed), kernel, plain
+            ms_plain = graph_ms(lambda: ba_dense.ba_solve_plain(prob, params),
+                                reps=20)
+            ms_eager = cuda_ms(lambda: ba_dense.ba_solve(prob, params))
+            ms_device = graph_ms(lambda: ba_dense.ba_solve(prob, params),
+                                 reps=200)
+            ms_device2 = graph_ms(lambda: ba_dense.ba_solve(prob, params),
+                                  reps=200)
+            ms_eager2 = cuda_ms(lambda: ba_dense.ba_solve(prob, params))
+            ms_plain2 = graph_ms(lambda: ba_dense.ba_solve_plain(prob,
+                                                                 params),
+                                 reps=20)
+            its = int(k2.iterations)
+            flops = BA_FLOPS_PER_POINT_ITERATION * P * its
+            nbytes = BA_BYTES_PER_POINT * P
+            ms_flops = flops / H100_F32_FLOPS * 1e3
+            ms_bytes = nbytes / H100_BYTES_PER_S * 1e3
+            times[f"p{P}"] = dict(
+                iterations=its, huber=huber, ms=min(ms_eager, ms_eager2),
+                device_ms=min(ms_device, ms_device2),
+                plain_ms=min(ms_plain, ms_plain2),
+                bound_ms=max(ms_flops, ms_bytes),
+                bound_by="operations" if ms_flops >= ms_bytes else "bytes")
+            log(f"two-frame BA kernel, {P} points, Huber "
+                f"{'on' if huber else 'off'}, {its} iterations: eager "
+                f"{ms_eager:.4f}/{ms_eager2:.4f} ms, device (CUDA-graph "
+                f"replay) {ms_device:.5f}/{ms_device2:.5f} ms, plain body "
+                f"replayed {ms_plain:.3f}/{ms_plain2:.3f} ms (plain, kernel, "
+                f"kernel, plain); bound {max(ms_flops, ms_bytes):.6f} ms by "
+                f"{times[f'p{P}']['bound_by']} ({flops} float32 operations, "
+                f"{nbytes} bytes)")
+    log("two-frame BA kernel vs the plain body (float32, card) against the "
+        "plain body's float64 solve (rotation rad, centre / baseline, "
+        "point sigmas, cost); one launch a solve, two calls bitwise equal: "
+        + "; ".join(gaps))
+    return times
 
 
 @contextlib.contextmanager
@@ -904,8 +1118,10 @@ def phase_reference_bars(dev, params: VoJitParams, gpu: str) -> int:
     torch.cuda.synchronize()
     features_cuda.fast_nms_harris_rank_pyramid.launches = 0
     t0 = time.perf_counter()
-    _, outs = replay(vo_init_state(params, device=dev), images, K_inv, focal)
-    torch.cuda.synchronize()
+    with ba_calls("rotation"):
+        _, outs = replay(vo_init_state(params, device=dev), images, K_inv,
+                         focal)
+        torch.cuda.synchronize()
     fps = ROT_FRAMES / (time.perf_counter() - t0)
     launches = features_cuda.fast_nms_harris_rank_pyramid.launches
     if launches != ROT_FRAMES:
@@ -1012,9 +1228,10 @@ def phase_main(dev, params: VoJitParams, gpu: str):
     torch.cuda.synchronize()
     features_cuda.fast_nms_harris_rank_pyramid.launches = 0
     t0 = time.perf_counter()
-    state, outs = replay(vo_init_state(params, device=dev), images, K_inv,
-                         focal)
-    torch.cuda.synchronize()
+    with ba_calls("tracker_replay"):
+        state, outs = replay(vo_init_state(params, device=dev), images,
+                             K_inv, focal)
+        torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     launches = features_cuda.fast_nms_harris_rank_pyramid.launches
 
@@ -1198,7 +1415,8 @@ def phase_slam(gpu: str):
         torch.cuda.synchronize()
         features_cuda.fast_nms_harris_rank_pyramid.launches = 0
         t0 = time.perf_counter()
-        run_pose_graph(frames, cam, app_run, out_dir, quiet=True)
+        with ba_calls("slam"):
+            run_pose_graph(frames, cam, app_run, out_dir, quiet=True)
         wall_s = time.perf_counter() - t0
         launches = features_cuda.fast_nms_harris_rank_pyramid.launches
         raw_tum = load_trajectory_tum(os.path.join(out_dir, "trajectory.tum"))
@@ -1497,8 +1715,10 @@ def phase_host_vo(gpu: str):
         torch.cuda.synchronize()
         features_cuda.fast_nms_harris_rank_pyramid.launches = 0
         t0 = time.perf_counter()
-        results = run_visual_odometer(frames, fm, vo, out_dir, quiet=True)
-        torch.cuda.synchronize()
+        with ba_calls("host_vo"):
+            results = run_visual_odometer(frames, fm, vo, out_dir,
+                                          quiet=True)
+            torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
         launches = features_cuda.fast_nms_harris_rank_pyramid.launches
         tum = load_trajectory_tum(os.path.join(out_dir, "trajectory.tum"))
@@ -1758,9 +1978,10 @@ def phase_reconstruct(dev, gpu: str, have: dict):
         torch.cuda.synchronize()
         features_cuda.fast_nms_harris_rank_pyramid.launches = 0
         t0 = time.perf_counter()
-        rec = reconstruct_scene.reconstruct(img1, img2, cam, out_dir,
-                                            device=dev)
-        torch.cuda.synchronize()
+        with ba_calls("reconstruct"):
+            rec = reconstruct_scene.reconstruct(img1, img2, cam, out_dir,
+                                                device=dev)
+            torch.cuda.synchronize()
         runs.append((rec, time.perf_counter() - t0,
                      features_cuda.fast_nms_harris_rank_pyramid.launches))
     rec, first_s, launches = runs[0]
@@ -2024,8 +2245,9 @@ def phase_native_loader(dev, gpu: str, have: dict) -> int:
     native_loader.PrefetchLoader.delivered = 0
     features_cuda.fast_nms_harris_rank_pyramid.launches = 0
     t0 = time.perf_counter()
-    rc = _run_visual_odometer(args, cam, paths)
-    torch.cuda.synchronize()
+    with ba_calls("native_loader_app"):
+        rc = _run_visual_odometer(args, cam, paths)
+        torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = features_cuda.fast_nms_harris_rank_pyramid.launches
     delivered = native_loader.PrefetchLoader.delivered
@@ -2397,14 +2619,17 @@ def main() -> int:
     log(f"device: {gpu}; nvidia-smi: {smi}; torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
 
-    t0 = time.perf_counter()
-    features_cuda.load_library()
-    log(f"build: {KERNEL_SOURCE} -> {features_cuda.BUILD_DIR} (nvcc, sm_90a) "
-        f"and load in {time.perf_counter() - t0:.2f} s")
+    for source, load in ((KERNEL_SOURCE, features_cuda.load_library),
+                         (BA_KERNEL_SOURCE, ba_cuda.load_library)):
+        t0 = time.perf_counter()
+        load()
+        log(f"build: {source} -> {cuda_build.BUILD_DIR} (nvcc, sm_90a) "
+            f"and load in {time.perf_counter() - t0:.2f} s")
 
     params = VoJitParams()
     card = f"{gpu} ({smi})"
     k1 = phase_kernel(dev, params.orb)
+    k2 = phase_ba_kernel(dev)
     phase_solver(dev, params, card)
     phase_parity(dev, params)
     rot_launches = phase_reference_bars(dev, params, card)
@@ -2435,6 +2660,12 @@ def main() -> int:
                    loader_launches, LOADER_FRAMES if loader_launches else 0),
                **{k: tuple(v) for k, v in orb_paths.items()}}
     total = sum(n for n, _ in by_path.values())
+    # K2 launches on the driven tracker paths (the tracker's BA and the
+    # bootstrap's refine) and in the back-end's loop polish
+    idle = [k for k in ("tracker_replay", "rotation", "slam")
+            if not BA_CALLS.get(k)]
+    if idle:
+        raise AssertionError(f"the two-frame BA kernel never ran on {idle}")
     log(json.dumps({"kernels": [{
         "name": "fast_nms_harris_rank", "route": "cuda",
         "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
@@ -2442,6 +2673,14 @@ def main() -> int:
         "launches_by_path": {k: n for k, (n, _) in by_path.items()},
         "launches_per_frame": total / sum(f for _, f in by_path.values()),
         **k1, "library_ms": None,
+    }, {
+        "name": "ba_two_frame", "route": "cuda", "source": BA_KERNEL_SOURCE,
+        "replaces": BA_KERNEL_REPLACES,
+        "launches": sum(BA_CALLS.values()),
+        "launches_by_path": dict(BA_CALLS),
+        "launches_counted": "wrapper calls: eager launches and CUDA-graph "
+                            "captures",
+        **k2, "library_ms": None,
     }]}))
     log(smi)
     print(json.dumps({"ok": True, "device": {

@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from mvslam_tpu_torch.ops import features, features_cuda
+from mvslam_tpu_torch.utils import cuda_build
 from mvslam_tpu_torch.utils.scene import render_planes_sequence
 from mvslam_tpu_torch.utils.timing import cuda_ms, graph_ms
 
@@ -57,12 +58,12 @@ def first_version_of_source() -> str:
 
 def per_level_runner(source: str, levels, orb):
     """One call = one launch per level of the per-level kernel ``source``."""
-    features_cuda.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=features_cuda.BUILD_DIR) as tmp:
+    cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=cuda_build.BUILD_DIR) as tmp:
         cu, so = Path(tmp) / "per_level.cu", Path(tmp) / "libper_level.so"
         cu.write_text(source)
         subprocess.run(
-            [features_cuda.find_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+            [cuda_build.find_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
              "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-o",
              str(so), str(cu)], check=True)
         lib = ctypes.CDLL(str(so))

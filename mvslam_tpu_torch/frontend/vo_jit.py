@@ -53,6 +53,7 @@ import torch
 from mvslam_tpu_torch.math import linalg
 from mvslam_tpu_torch.math.lie import SE3
 from mvslam_tpu_torch.ops import ba as ba_mod
+from mvslam_tpu_torch.ops import ba_cuda
 from mvslam_tpu_torch.ops import (epipolar, klt, matching, pnp, ransac,
                                   sfm)
 from mvslam_tpu_torch.ops.features import (OrbParams, corner_ranks,
@@ -74,16 +75,20 @@ MODE_TRACKING = 2
 #: parts where they replay as CUDA graphs (on a CUDA device only), and its
 #: two parts; the state half, which reads the mode and runs one branch;
 #: TRACKING's span around its four geometry stages where they replay as
-#: CUDA graphs (on a CUDA device only), and its six stages; INITIALIZING's
-#: span around its slots and refine walk where they replay as CUDA graphs
-#: (on a CUDA device only), and its three parts; the first frame's
+#: CUDA graphs (on a CUDA device only), and its six stages, with a mark
+#: inside the BA's span where its stage holds the BA kernel
+#: (``ops/ba_cuda``: launched in the call op by op, or while the stage was
+#: captured where it replays); INITIALIZING's span around its slots and
+#: refine walk where they replay as CUDA graphs (on a CUDA device only),
+#: and its three parts; the first frame's
 SPANS = (
     "vo_jit.pre", "vo_jit.pre.graphed", "vo_jit.pre.orb",
     "vo_jit.pre.templates",
     "vo_jit.combine",
     "vo_jit.track", "vo_jit.track.graphed", "vo_jit.track.associate",
     "vo_jit.track.pnp",
-    "vo_jit.track.triangulate", "vo_jit.track.ba", "vo_jit.track.gate",
+    "vo_jit.track.triangulate", "vo_jit.track.ba", "vo_jit.track.ba.fused",
+    "vo_jit.track.gate",
     "vo_jit.track.commit",
     "vo_jit.init", "vo_jit.init.graphed", "vo_jit.init.slots",
     "vo_jit.init.refine", "vo_jit.init.seed",
@@ -900,10 +905,13 @@ def _make_vo_step_fns(params: VoJitParams = VoJitParams(),
             obs_weight=weight, pose_prior=poses0,
             pose_prior_info=pose_prior_info, point_prior=pts0,
             point_prior_info=point_info)
+        launches = ba_cuda.two_frame_solve.launches
+        result = ba_mod.ba_solve(prob, ba_params)
+        # a constant of the stage's graph where it replays
+        fused = ba_cuda.two_frame_solve.launches != launches
         return dict(old_idx=old_idx, old_ok=old_ok, new_idx=new_idx,
                     new_ok=new_ok, obs_slots=obs_slots, nf=nf,
-                    obs_mask_ba=obs_mask_ba,
-                    result=ba_mod.ba_solve(prob, ba_params))
+                    obs_mask_ba=obs_mask_ba, result=result, ba_fused=fused)
 
     geometry = _StageRunner((associate, p3p_ransac, triangulate,
                              bundle_adjust), cuda_graphs)
@@ -927,9 +935,14 @@ def _make_vo_step_fns(params: VoJitParams = VoJitParams(),
         with (span("vo_jit.track.graphed") if geometry.replays(dev)
               else nullcontext()):
             for name in ("vo_jit.track.associate", "vo_jit.track.pnp",
-                         "vo_jit.track.triangulate", "vo_jit.track.ba"):
+                         "vo_jit.track.triangulate"):
                 with span(name):
                     run.advance()
+            with span("vo_jit.track.ba"):
+                run.advance()
+                if run.v.ba_fused:
+                    with span("vo_jit.track.ba.fused"):
+                        pass
         # what outlives the frame is the step's own, not a graph's output
         v, own = run.v, run.own
         result = v.result

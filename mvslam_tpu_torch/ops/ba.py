@@ -28,6 +28,7 @@ import torch.distributed as dist
 
 from mvslam_tpu_torch.math import linalg
 from mvslam_tpu_torch.math.lie import SE3, skew
+from mvslam_tpu_torch.ops import ba_cuda
 
 Tensor = torch.Tensor
 
@@ -247,8 +248,36 @@ def _retract(poses: SE3, points: Tensor, delta_c: Tensor, delta_p: Tensor):
 
 def ba_solve(prob: BAProblem, params: BAParams = BAParams(),
              group=None) -> BAResult:
-    """LM bundle adjustment: ``max_iterations`` masked iterations, frozen
-    once converged (the JAX early stop, without a host read).
+    """LM bundle adjustment (:func:`ba_solve_plain`). A two-frame float32
+    problem on a CUDA device, solved without ``group`` and without
+    covariances, with at most ``ba_cuda.CAPACITY`` points
+    (``ba_cuda.takes``), is solved by one launch of the kernel
+    ``csrc/ba_two_frame.cu`` (``ba_cuda.two_frame_solve``): the same
+    iterations and rules, summed in another order, zero covariances.
+    Everything else runs :func:`ba_solve_plain`."""
+    F, P = prob.poses0.t.shape[0], prob.points0.shape[0]
+    if not ba_cuda.takes(prob.points0.device, prob.points0.dtype, F, P,
+                         group is not None, params.compute_covariance):
+        return ba_solve_plain(prob, params, group)
+    prob = BAProblem(*(SE3(x.R.contiguous(), x.t.contiguous())
+                       if isinstance(x, SE3) else x.contiguous()
+                       for x in prob))
+    R, t, points, error, it, converged, info = ba_cuda.two_frame_solve(
+        prob, params)
+    dtype, dev = points.dtype, points.device
+    return BAResult(
+        poses=SE3(R, t), points=points,
+        pose_covariance=torch.zeros((F, 6, 6), dtype=dtype, device=dev),
+        point_covariance=torch.zeros((P, 3, 3), dtype=dtype, device=dev),
+        error=error, iterations=it, converged=converged,
+        point_information=info)
+
+
+def ba_solve_plain(prob: BAProblem, params: BAParams = BAParams(),
+                   group=None) -> BAResult:
+    """LM bundle adjustment in plain torch: ``max_iterations`` masked
+    iterations, frozen once converged (the JAX early stop, without a host
+    read).
 
     ``group``: a ``torch.distributed`` process group whose ranks each hold
     one block of the landmarks of ``prob`` and the same poses and pose

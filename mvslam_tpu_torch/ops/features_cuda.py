@@ -21,24 +21,17 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
 import math
-import os
-import shutil
-import subprocess
-import tempfile
-from pathlib import Path
 from typing import NamedTuple, Sequence
 
 import torch
 
 from mvslam_tpu_torch.ops import features
+from mvslam_tpu_torch.utils.cuda_build import CSRC, build_library
 
 Tensor = torch.Tensor
 
-_SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "fast_nms_harris.cu"
-#: build products live beside the checkout, in a directory git ignores
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+_SOURCE = CSRC / "fast_nms_harris.cu"
 #: nearest image border the kernel's clamp-to-edge halo matches exactly
 MIN_BORDER = 4
 
@@ -60,16 +53,6 @@ def fast_nms_harris_rank_ref(img: Tensor, threshold: float, k: float,
     score = features._suppress_border(score, border)
     harris = features.harris_response(img, k)
     return torch.where(score > 0, harris, torch.full_like(harris, -math.inf))
-
-
-def find_nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cand = Path("/usr/local/cuda/bin/nvcc")
-    if cand.exists():
-        return str(cand)
-    raise RuntimeError("nvcc not found: the CUDA kernel cannot be built")
 
 
 class LevelTable(NamedTuple):
@@ -109,28 +92,12 @@ def _c_level_table(shapes: tuple[tuple[int, int], ...]):
 
 
 def load_library() -> ctypes.CDLL:
-    """Build the kernel with nvcc for ``sm_90a`` (once per source: the
-    library in ``BUILD_DIR`` is named by the source's hash) and load it;
+    """Build the kernel (``utils.cuda_build.build_library``) and load it;
     idempotent."""
     global _lib
     if _lib is not None:
         return _lib
-    digest = hashlib.sha256(_SOURCE.read_bytes()).hexdigest()[:16]
-    so = BUILD_DIR / f"lib{_SOURCE.stem}-{digest}.so"
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [find_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-               "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-               "-o", tmp, str(_SOURCE)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
+    lib = build_library(_SOURCE)
     lib.mvslam_fast_nms_harris_rank_pyramid.argtypes = [
         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,

@@ -1,12 +1,14 @@
 """The tracker step's spans (``vo_jit.SPANS``, ``utils.timing.span``) on the
 CPU: under ``torch.profiler`` a run that bootstraps and then tracks gives
-every span but ``vo_jit.pre.graphed``, ``vo_jit.track.graphed`` and
-``vo_jit.init.graphed``, nested and in the order ``vo_jit.py`` lists them,
-and the spans change nothing the tracker computes: poses, modes and state
-are bit-equal with the profiler on and off, same seed and same draws. The
-three ``.graphed`` spans mark the CUDA graphs' replays: a tracker on the
-CPU builds no graph and never opens them, and its step is the one
-``vo_jit._make_vo_step_fns(..., cuda_graphs=False)`` gives, bit for bit.
+every span but ``vo_jit.pre.graphed``, ``vo_jit.track.graphed``,
+``vo_jit.init.graphed`` and ``vo_jit.track.ba.fused``, nested and in the
+order ``vo_jit.py`` lists them, and the spans change nothing the tracker
+computes: poses, modes and state are bit-equal with the profiler on and
+off, same seed and same draws. The three ``.graphed`` spans mark the CUDA
+graphs' replays: a tracker on the CPU builds no graph and never opens
+them, and its step is the one ``vo_jit._make_vo_step_fns(...,
+cuda_graphs=False)`` gives, bit for bit. ``vo_jit.track.ba.fused`` marks a
+BA stage that holds the CUDA BA kernel, which a CPU problem never runs.
 
 4 frames of the two-plane scene (240x320, focal 280, slanted background)
 at small capacities: EMPTY, INITIALIZING (bootstraps), TRACKING twice.
@@ -46,6 +48,8 @@ GRAPHED = "vo_jit.track.graphed"
 PRE_GRAPHED = "vo_jit.pre.graphed"
 #: opened only where the bootstrap's slots and refine replay as CUDA graphs
 INIT_GRAPHED = "vo_jit.init.graphed"
+#: opened only where the BA stage holds the CUDA BA kernel
+FUSED = "vo_jit.track.ba.fused"
 
 
 def _run(profiled, step=None):
@@ -105,7 +109,7 @@ def test_spans_nest_in_the_listed_order(runs):
                      e.start_ns() + e.duration_ns()) for e in events
                     if e.name().startswith("vo_jit.")))
     assert {s[2] for s in spans} == set(vo_jit.SPANS) - {
-        GRAPHED, PRE_GRAPHED, INIT_GRAPHED}
+        GRAPHED, PRE_GRAPHED, INIT_GRAPHED, FUSED}
     # one frame per "vo_jit.pre"; each frame's spans in the listed order
     frames, stack = [], []
     for a, _, name, b in spans:
@@ -120,7 +124,7 @@ def test_spans_nest_in_the_listed_order(runs):
     head = ["vo_jit.pre", "vo_jit.pre.orb", "vo_jit.pre.templates",
             "vo_jit.combine"]
     track = [n for n in vo_jit.SPANS
-             if n.startswith("vo_jit.track") and n != GRAPHED]
+             if n.startswith("vo_jit.track") and n not in (GRAPHED, FUSED)]
     init = [n for n in vo_jit.SPANS
             if n.startswith("vo_jit.init") and n != INIT_GRAPHED]
     assert frames == [head + ["vo_jit.empty"], head + init,
@@ -153,6 +157,19 @@ def test_init_graphed_span_is_listed_around_the_slots_and_refine():
     assert vo_jit.SPANS[i + 1:i + 4] == ("vo_jit.init.slots",
                                          "vo_jit.init.refine",
                                          "vo_jit.init.seed")
+
+
+def test_fused_span_is_listed_inside_the_ba_span():
+    i = vo_jit.SPANS.index(FUSED)
+    assert vo_jit.SPANS[i - 1] == "vo_jit.track.ba"
+    assert vo_jit.SPANS[i + 1] == "vo_jit.track.gate"
+
+
+def test_cpu_tracker_never_opens_the_fused_span(runs):
+    _, (_, outs, events) = runs
+    names = [e.name() for e in events]
+    assert names.count("vo_jit.track.ba") == 2
+    assert FUSED not in names
 
 
 def test_cpu_tracker_never_opens_the_init_graphed_span(runs):
